@@ -1,0 +1,51 @@
+"""Config dataclasses: model architecture and federated setup.
+
+Plain frozen dataclasses, as in ``repro.configs.base``. Only the fields the
+resnet family and the sync/flat engine read are carried over.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """One architecture. ``family`` selects the model implementation."""
+
+    name: str
+    family: str
+    num_layers: int
+    d_model: int
+    citation: str = ""
+    # vision classification (resnet)
+    image_size: int = 32
+    num_classes: int = 10
+
+
+@dataclasses.dataclass(frozen=True)
+class FedConfig:
+    """Federated-learning control-plane configuration (paper Sec IV)."""
+
+    num_clients: int = 12
+    participation: float = 0.5
+    rounds: int = 100
+    local_epochs: int = 5
+    local_batch: int = 32
+    lr: float = 0.01
+    mu: float = 0.1                 # FedProx proximal coefficient
+    selector: str = "heterosel"
+    dirichlet_alpha: float = 0.1
+    seed: int = 0
+    # 'batched' (one vmapped call per cohort) | 'sequential' (one call per
+    # client, the numerical reference).
+    client_execution: str = "batched"
+    # With 'batched': > 0 caps the per-call cohort at this many clients.
+    client_chunk: int = 0
+    # Only 'sync' and 'flat' are ported; the engine refuses the others.
+    round_policy: str = "sync"
+    topology: str = "flat"
+
+    @property
+    def num_selected(self) -> int:
+        return max(int(round(self.participation * self.num_clients)), 1)

@@ -1,0 +1,92 @@
+"""Synthetic federated vision data (CIFAR-10 stand-in), as in
+``repro.data.synthetic``.
+
+Everything is generated in numpy from the seed, so images, labels and client
+index lists are bitwise equal to the reference's. Batches become torch
+tensors (on the CPU) at the boundary; the executor moves them to its device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import FedConfig
+from repro_torch.fed.partition import client_label_js, dirichlet_partition
+
+
+def _class_templates(rng: np.random.Generator, num_classes: int, size: int) -> np.ndarray:
+    """Smooth class templates: low-frequency random fields, upsampled."""
+    low = rng.normal(size=(num_classes, size // 4, size // 4, 3))
+    up = np.repeat(np.repeat(low, 4, axis=1), 4, axis=2)
+    return up / np.abs(up).max(axis=(1, 2, 3), keepdims=True)
+
+
+@dataclasses.dataclass
+class VisionFedData:
+    """Per-client non-IID image classification data (Dirichlet label skew)."""
+
+    images: np.ndarray          # (N, H, W, 3) float32, NHWC
+    labels: np.ndarray          # (N,) int32
+    client_indices: List[np.ndarray]
+    label_dists: np.ndarray     # (K, C)
+    label_js: np.ndarray        # (K,)
+    test_images: np.ndarray
+    test_labels: np.ndarray
+
+    @property
+    def num_clients(self) -> int:
+        return len(self.client_indices)
+
+    def client_batches(self, k: int, steps: int, batch: int,
+                       rng: np.random.Generator) -> Dict[str, torch.Tensor]:
+        """(steps, batch, ...) draws with replacement from client k's data."""
+        idx = self.client_indices[k]
+        pick = rng.choice(idx, size=(steps, batch), replace=True)
+        return {
+            "images": torch.from_numpy(self.images[pick]),
+            "labels": torch.from_numpy(self.labels[pick]),
+        }
+
+    def eval_batch(self) -> Dict[str, torch.Tensor]:
+        return {
+            "images": torch.from_numpy(self.test_images),
+            "labels": torch.from_numpy(self.test_labels),
+        }
+
+
+def make_vision_data(
+    fed: FedConfig,
+    *,
+    num_classes: int = 10,
+    image_size: int = 32,
+    train_per_class: int = 256,
+    test_per_class: int = 64,
+    noise: float = 0.8,
+    seed: int | None = None,
+) -> VisionFedData:
+    seed = fed.seed if seed is None else seed
+    rng = np.random.default_rng(seed)
+    templates = _class_templates(rng, num_classes, image_size)
+
+    def sample(n_per_class):
+        labels = np.repeat(np.arange(num_classes), n_per_class)
+        imgs = templates[labels] + noise * rng.normal(
+            size=(len(labels), image_size, image_size, 3)
+        )
+        return imgs.astype(np.float32), labels.astype(np.int32)
+
+    images, labels = sample(train_per_class)
+    test_images, test_labels = sample(test_per_class)
+    client_indices, dists = dirichlet_partition(
+        labels, fed.num_clients, fed.dirichlet_alpha, seed=seed
+    )
+    return VisionFedData(
+        images=images, labels=labels,
+        client_indices=client_indices, label_dists=dists,
+        label_js=client_label_js(dists),
+        test_images=test_images, test_labels=test_labels,
+    )

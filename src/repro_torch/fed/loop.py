@@ -1,0 +1,48 @@
+"""``run_federated``: the keyword entry point over ``fed.engine``.
+
+    from repro_torch.fed import FederatedSpec
+    res = FederatedSpec(model, fed, data, selector="heterosel_pallas",
+                        executor="batched").build().run()
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import FedConfig
+from repro_torch.core.scoring import HeteRoScoreConfig
+from repro_torch.core.selection import SelectorConfig
+from repro_torch.fed.engine import FederatedSpec, FLResult, NoiseFn
+from repro_torch.models.model import Model
+
+
+def run_federated(
+    model: Model,
+    fed: FedConfig,
+    data: Any,
+    *,
+    score_cfg: Optional[HeteRoScoreConfig] = None,
+    sel_cfg: Optional[SelectorConfig] = None,
+    selector: Optional[str] = None,
+    steps_per_round: Optional[int] = None,
+    aggregator: str = "fedavg",
+    client_execution: Optional[str] = None,  # None ⇒ fed.client_execution
+    verbose: bool = False,
+    round_policy: Optional[str] = None,
+    topology: Optional[str] = None,
+    hooks: Any = (),
+    device: str | torch.device = "cuda",
+    noise: Optional[NoiseFn] = None,
+    init_params: Optional[Dict[str, Any]] = None,
+) -> FLResult:
+    """Run ``fed.rounds`` federated rounds and collect the paper's metrics."""
+    return FederatedSpec(
+        model=model, fed=fed, data=data, selector=selector,
+        score_cfg=score_cfg, sel_cfg=sel_cfg, steps_per_round=steps_per_round,
+        executor=client_execution, aggregator=aggregator,
+        hooks=list(hooks), verbose=verbose, round_policy=round_policy,
+        topology=topology, device=device,
+        noise=noise, init_params=init_params,
+    ).build().run()

@@ -1,0 +1,50 @@
+"""Server-side aggregation (paper Algorithm 1, line 26).
+
+Unweighted FedAvg over the selected subset, w_t ← (1/m) Σ_{k∈S_t} w_t^k,
+as one fused reduction per leaf over the batched cohort's leading client
+axis (``fedavg_fused``), or over a list of client dicts (``fedavg``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import torch
+
+Params = Dict[str, torch.Tensor]
+
+
+def fedavg(client_params: Sequence[Params]) -> Params:
+    """Unweighted mean of client parameter dicts."""
+    n = float(len(client_params))
+    return {k: (sum(p[k].to(torch.float32) for p in client_params) / n
+                ).to(client_params[0][k].dtype)
+            for k in client_params[0]}
+
+
+def weighted_sum_stacked(stacked_params: Params, weights: torch.Tensor) -> Params:
+    """Σ_m w_m · x_m over the leading client axis — one contraction per leaf.
+
+    Leaves come back float32; weights are used as given.
+    """
+    w = weights.to(torch.float32)
+    return {k: torch.tensordot(w, x.to(torch.float32), dims=1)
+            for k, x in stacked_params.items()}
+
+
+def fedavg_fused(stacked_params: Params,
+                 weights: Optional[torch.Tensor] = None) -> Params:
+    """Weighted FedAvg over a leading (M,) client axis.
+
+    ``weights=None`` → the paper's unweighted mean; otherwise weights are
+    normalized to sum to 1. Output leaves keep the input dtype.
+    """
+    first = next(iter(stacked_params.values()))
+    m = first.shape[0]
+    if weights is None:
+        w = torch.full((m,), 1.0 / m, dtype=torch.float32, device=first.device)
+    else:
+        w = weights.to(device=first.device, dtype=torch.float32)
+        w = w / torch.clamp_min(torch.sum(w), 1e-30)
+    summed = weighted_sum_stacked(stacked_params, w)
+    return {k: s.to(stacked_params[k].dtype) for k, s in summed.items()}

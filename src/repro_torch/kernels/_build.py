@@ -1,0 +1,77 @@
+"""Build and load the CUDA kernel libraries from ``csrc/`` on first use.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
+plain C interface and loaded with ``ctypes``. The build goes into
+``kernels/build/`` (listed in ``.gitignore``) under a name keyed by the hash
+of the source and the flags, so a changed source is rebuilt and an unchanged
+one is reused. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+
+# No --use_fast_math: the scores use expf, log1pf and IEEE division.
+# --fmad=false keeps each multiply and add rounded on its own, as the plain
+# PyTorch versions compute them.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+@dataclasses.dataclass(frozen=True)
+class Built:
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float      # compile time of this process's build; 0 if reused
+    log: str            # nvcc/ptxas output of the build that made ``path``
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (CUDA_HOME unset and no nvcc "
+                           "on PATH); the kernels cannot be built")
+    nvcc = Path(CUDA_HOME) / "bin" / "nvcc"
+    if not nvcc.exists():
+        raise RuntimeError(f"nvcc not found at {nvcc}")
+    return str(nvcc)
+
+
+@functools.cache
+def build(name: str) -> Built:
+    """Compile (or reuse) ``csrc/<name>.cu`` and load it."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = BUILD_DIR / f"lib{name}-{digest}.so"
+    log_path = so.with_suffix(".log")
+    seconds = 0.0
+    if not so.exists():
+        t0 = time.perf_counter()
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                              capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed to build {src.name}:\n{log}")
+        log_path.write_text(log)
+        os.replace(tmp, so)  # atomic: a concurrent builder sees all or nothing
+        seconds = time.perf_counter() - t0
+    log = log_path.read_text() if log_path.exists() else ""
+    return Built(lib=ctypes.CDLL(str(so)), path=so, seconds=seconds, log=log)

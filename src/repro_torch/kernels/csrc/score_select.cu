@@ -1,0 +1,294 @@
+// Fused HeteRo-Select scoring and Gumbel-top-m selection for Hopper (sm_90a).
+//
+// Replaces the two Pallas TPU kernels of the reference's main path:
+//   K1  stats_kernel   <- src/repro/kernels/score_select.py:_stats_kernel
+//                         (launched from _run_stats)
+//   K2  select_kernel  <- src/repro/kernels/score_select.py:_select_kernel
+//                         (with _score_body and _block_scores; launched from
+//                         fused_score_select)
+// The plain PyTorch versions of both live beside the wrappers in
+// repro_torch/kernels/score_select.py (score_stats_plain, score_select_plain).
+//
+// Operand: one stacked (9, kpad) row-major array of f32 or bf16, rows in
+// core.state.score_inputs order plus the staleness-override row; kpad is a
+// whole number of blocks. Column c < klim is a client, the rest padding.
+//
+// Bound on an H100 (3.35 TB/s HBM): both kernels are memory-bound. Per
+// client K1 reads 4 rows (16 B in f32, 8 B in bf16); K2 reads 8 rows (9 with
+// the override) plus 4 B of Gumbel noise and writes 8 B (score, exp), so
+// ~44 B in f32 and ~28 B in bf16. Arithmetic is a few dozen flops per
+// client, far below the card's 67 TFLOP/s of f32. At K = 2^20 that is
+// ~5 us for K1 and ~14 us for K2 in f32. At the paper's K = 12 both are
+// launch-latency bound.
+//
+// Design:
+//  * One CTA of 256 threads per block of BLOCK <= 2048 clients. The TPU
+//    version streamed 32768-client blocks through VMEM; on Hopper a block
+//    must fit shared memory for the in-block sort (2048 x 8 B = 16 KB) and
+//    K = 2^20 must give enough CTAs (512) to cover 132 SMs several times.
+//    The selected set does not depend on BLOCK: a global top-m element is
+//    beaten by at most m-1 others, so it survives its block's top-min(m, B).
+//  * Threads walk the block with stride 256, so a warp reads 32 neighbouring
+//    columns of a row: coalesced. bf16 rows are widened with
+//    __bfloat162float in registers; no f32 copy of the state is made.
+//  * Block reductions (min/max/sum) use warp shuffles, then one shared-memory
+//    slot per warp.
+//  * K2 keeps z = s/tau in shared memory between its passes, so scores are
+//    computed once; the perturbed logits z + g and their column ids are then
+//    bitonic-sorted in shared memory (value descending, index ascending) and
+//    the first min(m, B) are written out.
+//  * Arithmetic follows the plain version op for op (IEEE division, expf,
+//    log1pf) and the library is built with --fmad=false, so a score differs
+//    from the plain version's only through the order of the sum in K1.
+//
+// C interface (loaded with ctypes): every entry returns cudaGetLastError()
+// after its launch, 0 on success. Launches go to the caller's stream; nothing
+// is allocated or synchronized here.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr float kBig = 1e30f;
+
+enum Row { ROW_LOSS, ROW_LOSS2, ROW_JS, ROW_CNT, ROW_LAST, ROW_SQ, ROW_HASL,
+           ROW_HASM, ROW_STALE };
+enum Glob { G_LMIN, G_LMAX, G_AVGSQ, G_HMAX };
+enum Stat { ST_LMIN, ST_LMAX, ST_SUMSQ, ST_NOBS, ST_HMAX, NSTATS };
+
+}  // namespace
+
+// Score weights, in HeteRoScoreConfig order; the host passes a pointer to it.
+struct ScoreCfg {
+  float w_value, w_diversity, w_momentum, w_fairness, w_staleness, w_norm;
+  float eta, gamma, alpha, t_max;
+};
+
+namespace {
+
+__device__ __forceinline__ float load(const float* p) { return *p; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+struct MinOp { __device__ float operator()(float a, float b) const { return fminf(a, b); } };
+struct MaxOp { __device__ float operator()(float a, float b) const { return fmaxf(a, b); } };
+struct SumOp { __device__ float operator()(float a, float b) const { return a + b; } };
+
+// Reduce one value per thread over the CTA; every thread gets the result.
+// red must hold kWarps + 1 floats.
+template <typename Op>
+__device__ float block_reduce(float v, float identity, Op op, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < kWarps ? red[lane] : identity;
+    for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+    if (lane == 0) red[kWarps] = v;
+  }
+  __syncthreads();
+  const float out = red[kWarps];
+  __syncthreads();  // red may be reused by the next reduction
+  return out;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+stats_kernel(const T* __restrict__ st, int64_t kpad, int block, int64_t klim,
+             float* __restrict__ out) {
+  __shared__ float red[kWarps + 1];
+  const int64_t base = (int64_t)blockIdx.x * block;
+  float lmin = kBig, lmax = -kBig, sumsq = 0.f, nobs = 0.f, hmax = 0.f;
+  for (int i = threadIdx.x; i < block; i += kThreads) {
+    const int64_t c = base + i;
+    const bool valid = c < klim;
+    const float loss = load(st + ROW_LOSS * kpad + c);
+    const float sq = load(st + ROW_SQ * kpad + c);
+    const float cnt = load(st + ROW_CNT * kpad + c);
+    const bool obs = valid && load(st + ROW_HASL * kpad + c) > 0.f;
+    if (obs) {
+      lmin = fminf(lmin, loss);
+      lmax = fmaxf(lmax, loss);
+      sumsq += sq;
+      nobs += 1.f;
+    }
+    if (valid) hmax = fmaxf(hmax, cnt);
+  }
+  lmin = block_reduce(lmin, kBig, MinOp(), red);
+  lmax = block_reduce(lmax, -kBig, MaxOp(), red);
+  sumsq = block_reduce(sumsq, 0.f, SumOp(), red);
+  nobs = block_reduce(nobs, 0.f, SumOp(), red);
+  hmax = block_reduce(hmax, 0.f, MaxOp(), red);
+  if (threadIdx.x == 0) {
+    float* o = out + (int64_t)blockIdx.x * NSTATS;
+    o[ST_LMIN] = lmin;
+    o[ST_LMAX] = lmax;
+    o[ST_SUMSQ] = sumsq;
+    o[ST_NOBS] = nobs;
+    o[ST_HMAX] = hmax;
+  }
+}
+
+// Additive score of one client (reference: _block_scores), op for op as
+// score_select.py:_block_scores_plain.
+template <typename T>
+__device__ __forceinline__ float client_score(const T* st, int64_t kpad, int64_t c,
+                                              const float* g, float t, float decay,
+                                              int use_ov, const ScoreCfg& cfg) {
+  const float loss = load(st + ROW_LOSS * kpad + c);
+  const float loss2 = load(st + ROW_LOSS2 * kpad + c);
+  const bool has_loss = load(st + ROW_HASL * kpad + c) > 0.f;
+  const bool has_mom = load(st + ROW_HASM * kpad + c) > 0.f;
+
+  // Eq (3): min-max normalized information value (neutral 0.5 if unseen)
+  float v = (loss - g[G_LMIN]) / (g[G_LMAX] - g[G_LMIN] + 1e-8f);
+  v = fminf(fmaxf(v, 0.f), 1.f);
+  v = has_loss ? v : 0.5f;
+  // Eq (4): diversity with decaying weight
+  const float div = load(st + ROW_JS * kpad + c) * decay;
+  // Eq (5): sigmoid momentum
+  const float m = has_mom ? (loss2 - loss) / (loss2 + 1e-8f) : 0.f;
+  const float mom = 2.f / (1.f + expf(-5.f * m)) - 0.5f;
+  // Eq (6): fairness
+  const float f = 1.f + cfg.eta * load(st + ROW_CNT * kpad + c) / g[G_HMAX];
+  const float fair = 1.f / (f * f);
+  // Eq (7): staleness — round-counter delta or the override row
+  float delta = use_ov ? fmaxf(load(st + ROW_STALE * kpad + c), 0.f)
+                       : fmaxf(t - load(st + ROW_LAST * kpad + c), 0.f);
+  delta = fminf(delta, cfg.t_max);
+  const float stl = 1.f + cfg.gamma * log1pf(delta);
+  // Eq (11): update-norm penalty
+  const float r = has_loss ? load(st + ROW_SQ * kpad + c) / (g[G_AVGSQ] + 1e-8f) : 1.f;
+  const float npen = 1.f - cfg.alpha * (2.f / (1.f + expf(-3.f * r)) - 1.f);
+  // Eq (1) additive combination
+  return cfg.w_value * v + cfg.w_diversity * div + cfg.w_momentum * mom
+         + cfg.w_fairness * (fair - 1.f) + cfg.w_staleness * (stl - 1.f)
+         + cfg.w_norm * (npen - 1.f);
+}
+
+// a goes before b: larger value first, ties by smaller index.
+__device__ __forceinline__ bool goes_before(float va, int ia, float vb, int ib) {
+  return va > vb || (va == vb && ia < ib);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+select_kernel(const T* __restrict__ st, const float* __restrict__ gumbel,
+              const float* __restrict__ glob, int64_t kpad, int block, int64_t klim,
+              float t, float tau, int use_ov, float decay, ScoreCfg cfg, int mb,
+              float* __restrict__ scores, float* __restrict__ e_out,
+              float* __restrict__ part, float* __restrict__ cval,
+              int* __restrict__ cidx) {
+  extern __shared__ float smem[];
+  float* key = smem;                              // [block] z, then z + g
+  int* idx = reinterpret_cast<int*>(smem + block);  // [block] column in block
+  __shared__ float red[kWarps + 1];
+  __shared__ float g[4];
+  if (threadIdx.x < 4) g[threadIdx.x] = glob[threadIdx.x];
+  __syncthreads();
+
+  const int64_t base = (int64_t)blockIdx.x * block;
+  float zmax = -kBig;
+  for (int i = threadIdx.x; i < block; i += kThreads) {
+    const int64_t c = base + i;
+    const float s = client_score(st, kpad, c, g, t, decay, use_ov, cfg);
+    scores[c] = s;
+    const float z = c < klim ? s / tau : -kBig;
+    key[i] = z;
+    zmax = fmaxf(zmax, z);
+  }
+  const float m_b = block_reduce(zmax, -kBig, MaxOp(), red);
+
+  float lsum = 0.f;
+  for (int i = threadIdx.x; i < block; i += kThreads) {
+    const int64_t c = base + i;
+    const float z = key[i];
+    const float e = c < klim ? expf(z - m_b) : 0.f;
+    e_out[c] = e;
+    lsum += e;
+    // Ranking z + g ranks log p + g: the softmax shift is common to all.
+    key[i] = z + gumbel[c];
+    idx[i] = i;
+  }
+  const float l_b = block_reduce(lsum, 0.f, SumOp(), red);
+  if (threadIdx.x == 0) {
+    part[2 * blockIdx.x] = m_b;
+    part[2 * blockIdx.x + 1] = l_b;
+  }
+
+  // Bitonic sort of (key, idx) in shared memory; block is a power of two.
+  for (int size = 2; size <= block; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < block; i += kThreads) {
+        const int j = i ^ stride;
+        if (j > i) {
+          const float vi = key[i], vj = key[j];
+          const int ii = idx[i], ij = idx[j];
+          const bool first_half = (i & size) == 0;
+          const bool swap = first_half ? goes_before(vj, ij, vi, ii)
+                                       : goes_before(vi, ii, vj, ij);
+          if (swap) {
+            key[i] = vj; key[j] = vi;
+            idx[i] = ij; idx[j] = ii;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < mb; i += kThreads) {
+    cval[(int64_t)blockIdx.x * mb + i] = key[i];
+    cidx[(int64_t)blockIdx.x * mb + i] = (int)(base + idx[i]);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32 rows, 1 = bfloat16 rows.
+int hs_stats(int dtype, const void* stacked, long long kpad, int block,
+             int nblocks, long long klim, float* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    stats_kernel<float><<<nblocks, kThreads, 0, s>>>(
+        static_cast<const float*>(stacked), kpad, block, klim, out);
+  } else {
+    stats_kernel<__nv_bfloat16><<<nblocks, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(stacked), kpad, block, klim, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int hs_select(int dtype, const void* stacked, const float* gumbel,
+              const float* glob, long long kpad, int block, int nblocks,
+              long long klim, float t, float tau, int use_ov, float decay,
+              const ScoreCfg* cfg, int mb, float* scores, float* e, float* part,
+              float* cval, int* cidx, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = static_cast<size_t>(block) * (sizeof(float) + sizeof(int));
+  if (dtype == 0) {
+    select_kernel<float><<<nblocks, kThreads, smem, s>>>(
+        static_cast<const float*>(stacked), gumbel, glob, kpad, block, klim, t,
+        tau, use_ov, decay, *cfg, mb, scores, e, part, cval, cidx);
+  } else {
+    select_kernel<__nv_bfloat16><<<nblocks, kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(stacked), gumbel, glob, kpad, block,
+        klim, t, tau, use_ov, decay, *cfg, mb, scores, e, part, cval, cidx);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* hs_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,383 @@
+"""Fused HeteRo-Select scoring, softmax and Gumbel-top-m selection (Eqs 1–12).
+
+Port of ``repro.kernels.score_select.fused_score_select``, the two-pass
+kernel the main path runs every round under ``selector="heterosel_pallas"``:
+
+  * K1 ``score_stats`` (replaces ``_stats_kernel``): each block of clients is
+    reduced to five partials (loss min/max over observed clients, Σ‖Δw‖²
+    and the observation count, the participation max); ``_combine_stats``
+    folds the ``(nblocks, 5)`` table into the four global statistics.
+  * K2 ``score_select`` (replaces ``_select_kernel``): each block computes
+    the additive scores, the block softmax exponentials with their
+    (m_b, l_b) normalizer pair, and its top-min(m, block) Gumbel-perturbed
+    candidates. ``_normalize`` merges the normalizers and a top-m over the
+    candidates picks the cohort.
+
+Both kernels are CUDA C++ for sm_90a (``csrc/score_select.cu``, whose header
+gives their bound and design). Each wrapper below takes its plain PyTorch
+version for a tensor on the CPU, and launches its kernel for a CUDA tensor —
+there is no fallback from one to the other. ``LAUNCHES`` counts kernel
+launches; the plain versions do not count.
+
+All (K,) operands travel as one stacked ``(9, kpad)`` operand (``_pack``),
+bf16 when the ClientState is bf16. Row ``ROW_STALE`` carries a staleness
+override switched on by ``use_ov``. The Gumbel noise is an input, drawn by
+the caller, so a run can be held against the reference on the same noise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.scoring import HeteRoScoreConfig, diversity_decay
+
+MAX_BLOCK = 2048    # clients per CTA: the in-block sort fits 16 KB of smem
+MIN_BLOCK = 32      # one warp
+BIG = 1e30
+
+(ROW_LOSS, ROW_LOSS2, ROW_JS, ROW_CNT, ROW_LAST, ROW_SQ, ROW_HASL,
+ ROW_HASM, ROW_STALE) = range(9)
+NROWS = 9
+
+# Columns of the (nblocks, NSTATS) K1 partial table.
+(ST_LMIN, ST_LMAX, ST_SUMSQ, ST_NOBS, ST_HMAX) = range(5)
+NSTATS = 5
+
+# Kernel launches since the last reset, by kernel.
+LAUNCHES = {"score_stats": 0, "score_select": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+class _ScoreCfg(ctypes.Structure):
+    """Mirror of ``struct ScoreCfg`` in csrc/score_select.cu."""
+
+    _fields_ = [(n, ctypes.c_float) for n in (
+        "w_value", "w_diversity", "w_momentum", "w_fairness", "w_staleness",
+        "w_norm", "eta", "gamma", "alpha", "t_max")]
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """Build (first use) and load csrc/score_select.cu, with its C types."""
+    from repro_torch.kernels import _build
+
+    lib = _build.build("score_select").lib
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.hs_stats.argtypes = [i, p, ll, i, i, ll, p, p]
+    lib.hs_stats.restype = i
+    lib.hs_select.argtypes = [i, p, p, p, ll, i, i, ll, f, f, i, f,
+                              ctypes.POINTER(_ScoreCfg), i, p, p, p, p, p, p]
+    lib.hs_select.restype = i
+    lib.hs_error_string.argtypes = [i]
+    lib.hs_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_card(device: torch.device) -> None:
+    major, minor = torch.cuda.get_device_capability(device)
+    if (major, minor) != (9, 0):
+        raise RuntimeError(
+            f"the score_select kernels are built for sm_90a (Hopper); "
+            f"{torch.cuda.get_device_name(device)} is sm_{major}{minor}")
+
+
+def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} "
+                           f"({lib.hs_error_string(rc).decode()})")
+
+
+def _dtype_code(x: torch.Tensor) -> int:
+    return {torch.float32: 0, torch.bfloat16: 1}[x.dtype]
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# Layout and packing
+# ---------------------------------------------------------------------------
+
+
+def _layout(k: int, block: Optional[int] = None) -> tuple[int, int, int]:
+    """(block, nblocks, kpad). ``block`` is a power of two in
+    [MIN_BLOCK, MAX_BLOCK], shrunk to the smallest power of two ≥ K when the
+    whole federation fits one block."""
+    if k < 1:
+        raise ValueError(f"need at least one client, got K={k}")
+    blk = block or MAX_BLOCK
+    if blk & (blk - 1) or not MIN_BLOCK <= blk <= MAX_BLOCK:
+        raise ValueError(f"block must be a power of two in "
+                         f"[{MIN_BLOCK}, {MAX_BLOCK}], got {blk}")
+    blk = min(blk, max(MIN_BLOCK, 1 << (k - 1).bit_length()))
+    nblocks = -(-k // blk)
+    return blk, nblocks, nblocks * blk
+
+
+def _pack(rows, staleness_override, k: int, kpad: int) -> torch.Tensor:
+    """One stacked (NROWS, kpad) operand. A bf16 state streams as bf16; the
+    int32 counters are cast to the feed type here, as the reference does."""
+    feed = torch.bfloat16 if rows[0].dtype == torch.bfloat16 else torch.float32
+    dev = rows[0].device
+    if staleness_override is None:
+        stale = torch.zeros(k, dtype=feed, device=dev)
+    else:
+        stale = staleness_override.to(device=dev, dtype=feed)
+    stacked = torch.stack([r.to(feed) for r in rows] + [stale])
+    return F.pad(stacked, (0, kpad - k))
+
+
+def _check_stacked(stacked: torch.Tensor, block: int) -> int:
+    if stacked.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"stacked operand must be float32 or bfloat16, "
+                        f"got {stacked.dtype}")
+    if stacked.dim() != 2 or stacked.shape[0] != NROWS or stacked.shape[1] % block:
+        raise ValueError(f"stacked operand must be ({NROWS}, nblocks*{block}), "
+                         f"got {tuple(stacked.shape)}")
+    if not stacked.is_contiguous():
+        raise ValueError("stacked operand must be contiguous")
+    if stacked.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {stacked.device}")
+    return stacked.shape[1] // block
+
+
+# ---------------------------------------------------------------------------
+# K1: per-block statistics
+# ---------------------------------------------------------------------------
+
+
+def score_stats_plain(stacked: torch.Tensor, *, k: int, block: int) -> torch.Tensor:
+    """Plain version of K1: (nblocks, NSTATS) f32 per-block partials."""
+    nblocks = stacked.shape[1] // block
+    x = stacked.to(torch.float32).view(NROWS, nblocks, block)
+    col = torch.arange(nblocks * block, device=stacked.device).view(nblocks, block)
+    valid = col < k
+    obs = valid & (x[ROW_HASL] > 0)
+    loss = x[ROW_LOSS]
+    return torch.stack([
+        torch.where(obs, loss, BIG).amin(1),
+        torch.where(obs, loss, -BIG).amax(1),
+        torch.where(obs, x[ROW_SQ], 0.0).sum(1),
+        obs.to(torch.float32).sum(1),
+        torch.where(valid, x[ROW_CNT], 0.0).amax(1),
+    ], dim=1)
+
+
+def score_stats(stacked: torch.Tensor, *, k: int, block: int) -> torch.Tensor:
+    """K1: per-block partials of the global scoring statistics.
+
+    CPU tensor → ``score_stats_plain``; CUDA tensor → the sm_90a kernel.
+    """
+    nblocks = _check_stacked(stacked, block)
+    if stacked.device.type == "cpu":
+        return score_stats_plain(stacked, k=k, block=block)
+    _check_card(stacked.device)
+    lib = _library()
+    out = torch.empty((nblocks, NSTATS), dtype=torch.float32, device=stacked.device)
+    rc = lib.hs_stats(_dtype_code(stacked), stacked.data_ptr(), stacked.shape[1],
+                      block, nblocks, k, out.data_ptr(), _stream(stacked.device))
+    _raise_on(lib, rc, "score_stats")
+    LAUNCHES["score_stats"] += 1
+    return out
+
+
+def _combine_stats(stats: torch.Tensor) -> torch.Tensor:
+    """Fold the (nblocks, NSTATS) table into (lmin, lmax, avgsq, hmax), f32,
+    on the table's device (no host round trip)."""
+    lmin = stats[:, ST_LMIN].amin()
+    lmax = stats[:, ST_LMAX].amax()
+    avgsq = stats[:, ST_SUMSQ].sum() / torch.clamp_min(stats[:, ST_NOBS].sum(), 1.0)
+    hmax = torch.clamp_min(stats[:, ST_HMAX].amax(), 1.0)
+    return torch.stack([lmin, lmax, avgsq, hmax])
+
+
+# ---------------------------------------------------------------------------
+# K2: scores, block softmax pieces, per-block Gumbel-top-m candidates
+# ---------------------------------------------------------------------------
+
+
+def _block_scores_plain(x: torch.Tensor, glob: torch.Tensor, *, t: float,
+                        decay: float, use_ov: bool,
+                        cfg: HeteRoScoreConfig) -> torch.Tensor:
+    """Six score components + Eq (1) additive combination, (kpad,) f32.
+
+    The op order matches ``client_score`` in csrc/score_select.cu. Every
+    divisor is a tensor on ``x``'s device: a CPU scalar divisor would let
+    PyTorch's CUDA division multiply by a reciprocal instead.
+    """
+    lmin, lmax, avgsq, hmax = glob[0], glob[1], glob[2], glob[3]
+    loss = x[ROW_LOSS]
+    loss2 = x[ROW_LOSS2]
+    has_loss = x[ROW_HASL] > 0
+    has_mom = x[ROW_HASM] > 0
+    # Eq (3)
+    v = torch.clamp((loss - lmin) / (lmax - lmin + 1e-8), 0.0, 1.0)
+    v = torch.where(has_loss, v, 0.5)
+    # Eq (4)
+    div = x[ROW_JS] * decay
+    # Eq (5)
+    m = torch.where(has_mom, (loss2 - loss) / (loss2 + 1e-8), 0.0)
+    mom = 2.0 / (1.0 + torch.exp(-5.0 * m)) - 0.5
+    # Eq (6)
+    f = 1.0 + cfg.eta * x[ROW_CNT] / hmax
+    fair = 1.0 / (f * f)
+    # Eq (7)
+    if use_ov:
+        delta = torch.clamp_min(x[ROW_STALE], 0.0)
+    else:
+        delta = torch.clamp_min(t - x[ROW_LAST], 0.0)
+    delta = torch.clamp_max(delta, float(cfg.t_max))
+    st = 1.0 + cfg.gamma * torch.log1p(delta)
+    # Eq (11)
+    r = torch.where(has_loss, x[ROW_SQ] / (avgsq + 1e-8), 1.0)
+    npen = 1.0 - cfg.alpha * (2.0 / (1.0 + torch.exp(-3.0 * r)) - 1.0)
+    # Eq (1)
+    return (cfg.w_value * v + cfg.w_diversity * div + cfg.w_momentum * mom
+            + cfg.w_fairness * (fair - 1.0) + cfg.w_staleness * (st - 1.0)
+            + cfg.w_norm * (npen - 1.0))
+
+
+def score_select_plain(stacked, glob, gumbel, *, k: int, block: int, t: float,
+                       tau: float, use_ov: bool, decay: float,
+                       cfg: HeteRoScoreConfig, mb: int):
+    """Plain version of K2. Returns ``(scores (kpad,), e (kpad,),
+    part (nblocks, 2) = (m_b, l_b), cval (nblocks, mb) f32,
+    cidx (nblocks, mb) int32)``; candidates are ordered by value descending,
+    ties by column ascending."""
+    dev = stacked.device
+    kpad = stacked.shape[1]
+    nblocks = kpad // block
+    x = stacked.to(torch.float32)
+    valid = (torch.arange(kpad, device=dev) < k).view(nblocks, block)
+    s = _block_scores_plain(x, glob, t=t, decay=decay, use_ov=use_ov, cfg=cfg)
+    tau_t = torch.tensor(tau, dtype=torch.float32, device=dev)
+    z = torch.where(valid, (s / tau_t).view(nblocks, block), -BIG)
+    m_b = z.amax(1)
+    e = torch.where(valid, torch.exp(z - m_b[:, None]), 0.0)
+    l_b = e.sum(1)
+    pert = z + gumbel.view(nblocks, block)
+    vals, loc = torch.sort(pert, dim=1, descending=True, stable=True)
+    first = torch.arange(nblocks, device=dev)[:, None] * block
+    return (s, e.reshape(-1), torch.stack([m_b, l_b], dim=1),
+            vals[:, :mb].contiguous(), (loc[:, :mb] + first).to(torch.int32))
+
+
+def score_select(stacked, glob, gumbel, *, k: int, block: int, t: float,
+                 tau: float, use_ov: bool, decay: float,
+                 cfg: HeteRoScoreConfig, mb: int):
+    """K2: scores, softmax pieces and per-block candidates (see the plain
+    version for the outputs). CPU tensors → ``score_select_plain``; CUDA
+    tensors → the sm_90a kernel."""
+    nblocks = _check_stacked(stacked, block)
+    kpad = stacked.shape[1]
+    for name, a, shape in (("gumbel", gumbel, (kpad,)), ("glob", glob, (4,))):
+        if a.dtype != torch.float32 or tuple(a.shape) != shape \
+                or not a.is_contiguous() or a.device != stacked.device:
+            raise ValueError(f"{name} must be a contiguous float32 {shape} tensor "
+                             f"on {stacked.device}")
+    if not 1 <= mb <= block:
+        raise ValueError(f"mb must be in [1, {block}], got {mb}")
+    if stacked.device.type == "cpu":
+        return score_select_plain(stacked, glob, gumbel, k=k, block=block, t=t,
+                                  tau=tau, use_ov=use_ov, decay=decay, cfg=cfg,
+                                  mb=mb)
+    _check_card(stacked.device)
+    lib = _library()
+    dev = stacked.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    scores = torch.empty(kpad, **f32)
+    e = torch.empty(kpad, **f32)
+    part = torch.empty((nblocks, 2), **f32)
+    cval = torch.empty((nblocks, mb), **f32)
+    cidx = torch.empty((nblocks, mb), dtype=torch.int32, device=dev)
+    c = _ScoreCfg(cfg.w_value, cfg.w_diversity, cfg.w_momentum, cfg.w_fairness,
+                  cfg.w_staleness, cfg.w_norm, cfg.eta, cfg.gamma, cfg.alpha,
+                  float(cfg.t_max))
+    rc = lib.hs_select(_dtype_code(stacked), stacked.data_ptr(), gumbel.data_ptr(),
+                       glob.data_ptr(), kpad, block, nblocks, k, t, tau,
+                       int(use_ov), decay, ctypes.byref(c), mb, scores.data_ptr(),
+                       e.data_ptr(), part.data_ptr(), cval.data_ptr(),
+                       cidx.data_ptr(), _stream(dev))
+    _raise_on(lib, rc, "score_select")
+    LAUNCHES["score_select"] += 1
+    return scores, e, part, cval, cidx
+
+
+# ---------------------------------------------------------------------------
+# The fused selection
+# ---------------------------------------------------------------------------
+
+
+def _normalize(e_flat: torch.Tensor, part: torch.Tensor, nblocks: int,
+               block: int) -> torch.Tensor:
+    """Merge per-block (m_b, l_b) into global probabilities (flash-attention
+    normalizer merge; with one block this is e / Σe)."""
+    m_b = part[:, 0]
+    l_b = part[:, 1]
+    scale = torch.exp(m_b - m_b.amax())
+    lglob = torch.clamp_min(torch.sum(l_b * scale), 1e-30)
+    return (e_flat.view(nblocks, block) * scale[:, None] / lglob).reshape(-1)
+
+
+def _fused(stats_fn: Callable, select_fn: Callable,
+           loss_prev, loss_prev2, label_js, part_count, last_selected,
+           update_sqnorm, has_loss, has_momentum, *, round_idx, tau, m: int,
+           gumbel: torch.Tensor, cfg: HeteRoScoreConfig,
+           staleness_override=None, block: Optional[int] = None):
+    k = loss_prev.shape[0]
+    if not 1 <= m <= k:
+        raise ValueError(f"m must be in [1, K={k}], got {m}")
+    blk, nblocks, kpad = _layout(k, block)
+    rows = (loss_prev, loss_prev2, label_js, part_count, last_selected,
+            update_sqnorm, has_loss, has_momentum)
+    stacked = _pack(rows, staleness_override, k, kpad)
+    stats = stats_fn(stacked, k=k, block=blk)
+    glob = _combine_stats(stats)
+    gpad = F.pad(gumbel.to(device=stacked.device, dtype=torch.float32), (0, kpad - k))
+    # round_idx and tau as exact f32 values, as the reference's scalar lanes.
+    t = float(torch.tensor(float(round_idx), dtype=torch.float32))
+    tau = float(torch.as_tensor(tau, dtype=torch.float32))
+    decay = float(diversity_decay(round_idx, cfg))
+    scores, e, part, cval, cidx = select_fn(
+        stacked, glob, gpad, k=k, block=blk, t=t, tau=tau,
+        use_ov=staleness_override is not None, decay=decay, cfg=cfg,
+        mb=min(m, blk))
+    probs = _normalize(e, part, nblocks, blk)[:k]
+    pos = torch.topk(cval.reshape(-1), m).indices
+    selected = cidx.reshape(-1)[pos]
+    return selected, probs, scores[:k]
+
+
+def fused_score_select(*rows, round_idx, tau, m: int, gumbel: torch.Tensor,
+                       cfg: HeteRoScoreConfig, staleness_override=None,
+                       block: Optional[int] = None):
+    """Fused scoring + softmax + Gumbel-top-m selection through K1 and K2.
+
+    ``rows`` are the eight (K,) state vectors in ``score_inputs`` order;
+    ``gumbel`` is the (K,) f32 noise. Returns ``(selected (m,) int32,
+    probs (K,), scores (K,))``; ``selected`` is a set (its order is not
+    part of the contract).
+    """
+    return _fused(score_stats, score_select, *rows, round_idx=round_idx,
+                  tau=tau, m=m, gumbel=gumbel, cfg=cfg,
+                  staleness_override=staleness_override, block=block)
+
+
+def fused_score_select_plain(*rows, round_idx, tau, m: int, gumbel: torch.Tensor,
+                             cfg: HeteRoScoreConfig, staleness_override=None,
+                             block: Optional[int] = None):
+    """``fused_score_select`` through the plain versions of K1 and K2 on any
+    device — what a kernel run is held against."""
+    return _fused(score_stats_plain, score_select_plain, *rows,
+                  round_idx=round_idx, tau=tau, m=m, gumbel=gumbel, cfg=cfg,
+                  staleness_override=staleness_override, block=block)

@@ -1,0 +1,43 @@
+"""Uniform model facade: ``build_model(cfg)`` dispatches to the family impl.
+
+Same surface as ``repro.models.model`` for the ported families:
+
+  init_params(generator)   → params dict on the generator's device
+  loss(params, batch)      → scalar f32 loss
+  forward(params, batch)   → logits
+
+Only the resnet family is ported; it has no decode step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import resnet
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    module: torch.nn.Module
+    init_params: Callable[[torch.Generator], Any]
+    loss: Callable[..., torch.Tensor]
+    forward: Callable[..., torch.Tensor]
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    if cfg.family == "resnet":
+        module = resnet.ResNet(cfg)
+        return Model(
+            cfg=cfg,
+            module=module,
+            init_params=lambda gen: resnet.init_params(module, gen),
+            loss=lambda p, b: resnet.loss_fn(module, p, b),
+            forward=lambda p, b: resnet.forward(module, p, b["images"]),
+        )
+    raise NotImplementedError(
+        f"model family '{cfg.family}' is not ported; only 'resnet' is")

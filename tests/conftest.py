@@ -9,6 +9,11 @@ import pytest
 import jax
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips when torch sees none")
+
+
 @pytest.fixture(scope="session")
 def rng_key():
     return jax.random.PRNGKey(0)

@@ -1,0 +1,54 @@
+"""The port stands alone: no module of ``src/repro_torch/``, and not
+``chip_smoke.py``, imports ``jax``, ``jaxlib`` or the reference package
+``repro``; and a run asked for the card never continues on the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_port_imports_no_jax_and_no_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
+           for f in files for mod, line in _imported_roots(f) if mod in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_cuda_request_without_a_card_raises():
+    from repro_torch.device import resolve_device
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the refusal needs a machine without one")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; chip_smoke.py would run for real")
+    env = {**os.environ, "PYTHONPATH": ""}
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120, env=env)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
