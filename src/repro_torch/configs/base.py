@@ -1,7 +1,8 @@
 """Config dataclasses: model architecture and federated setup.
 
 Plain frozen dataclasses, as in ``repro.configs.base``. Only the fields the
-resnet family and the sync/flat engine read are carried over.
+resnet family and the sync engines (flat and hierarchical) read are carried
+over.
 """
 
 from __future__ import annotations
@@ -42,9 +43,16 @@ class FedConfig:
     client_execution: str = "batched"
     # With 'batched': > 0 caps the per-call cohort at this many clients.
     client_chunk: int = 0
-    # Only 'sync' and 'flat' are ported; the engine refuses the others.
+    # Only 'sync' is ported; FederatedSpec.build refuses 'async'.
     round_policy: str = "sync"
+    # 'flat' (every selected client uploads to the cloud) | 'hierarchical'
+    # (clients grouped into ``edge_count`` edges; fed/hierarchy.py).
     topology: str = "flat"
+    # E — number of edge groups; required (> 0) when topology='hierarchical'.
+    edge_count: int = 0
+    # Per-edge inner selection budget m_e. 0 ⇒ distribute ``num_selected``
+    # across edges proportionally to edge size (budgets then sum to ≤ m).
+    edge_budget: int = 0
 
     @property
     def num_selected(self) -> int:

@@ -105,6 +105,18 @@ def random_select(gumbel: torch.Tensor, state: ClientState, round_idx: int, *,
     return sample_clients(gumbel, probs, sel_cfg.num_selected), probs
 
 
+def edge_selection_probs(pooled_state: ClientState, round_idx,
+                         sel_cfg: SelectorConfig,
+                         score_cfg: HeteRoScoreConfig) -> torch.Tensor:
+    """(E,) cross-edge selection probabilities for the hierarchical outer
+    stage: Eqs 1–12 on the pooled pseudo-client state
+    (``core.state.pool_client_state``). Sampling stays with the caller,
+    which masks busy edges before its Gumbel-top-m draw."""
+    scores = compute_scores(pooled_state, round_idx, score_cfg,
+                            additive=sel_cfg.additive)
+    return selection_probabilities(scores, dynamic_temperature(round_idx, sel_cfg))
+
+
 # Names make_selector serves; the reference's other selectors are not ported.
 SELECTORS = ("heterosel", "heterosel_pallas", "heterosel_mult", "random")
 

@@ -149,6 +149,48 @@ def scatter_observations(
     return loss, sq
 
 
+def pool_client_state(state: ClientState, assignment: torch.Tensor,
+                      num_edges: int) -> ClientState:
+    """(E,)-pooled ``ClientState`` for the hierarchical outer stage.
+
+    Each edge becomes one pseudo-client whose metadata pools its members'
+    rows, so the scoring runs unchanged on the result:
+
+      * ``loss_prev`` / ``loss_prev2`` / ``update_sqnorm`` — mean over the
+        edge's observed members (``has_loss`` / ``has_momentum``-weighted);
+      * ``label_js`` and ``part_count`` — plain mean (f32);
+      * ``last_selected`` — max (the edge's most recent contact, int32);
+      * ``has_loss`` / ``has_momentum`` — max (any member observed).
+
+    ``assignment`` is the (K,) edge id of each client. Sums are
+    ``index_add_`` and maxima ``scatter_reduce(..., "amax")``: one O(K) pass
+    each, no per-edge gathers.
+    """
+    seg = torch.as_tensor(assignment).to(device=state.device, dtype=torch.int64)
+
+    def ssum(x: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros(num_edges, dtype=torch.float32, device=x.device)
+        return out.index_add_(0, seg, x.to(torch.float32))
+
+    def smax(x: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros(num_edges, dtype=x.dtype, device=x.device)
+        return out.scatter_reduce(0, seg, x, "amax", include_self=False)
+
+    counts = torch.clamp_min(ssum(torch.ones_like(state.has_loss)), 1.0)
+    n_obs = torch.clamp_min(ssum(state.has_loss), 1.0)
+    n_mom = torch.clamp_min(ssum(state.has_momentum), 1.0)
+    return ClientState(
+        loss_prev=ssum(state.loss_prev * state.has_loss) / n_obs,
+        loss_prev2=ssum(state.loss_prev2 * state.has_momentum) / n_mom,
+        label_js=ssum(state.label_js) / counts,
+        part_count=ssum(state.part_count) / counts,
+        last_selected=smax(state.last_selected),
+        update_sqnorm=ssum(state.update_sqnorm * state.has_loss) / n_obs,
+        has_loss=smax(state.has_loss),
+        has_momentum=smax(state.has_momentum),
+    )
+
+
 def score_inputs(state: ClientState) -> tuple[torch.Tensor, ...]:
     """The eight (K,) metadata vectors in the fused kernel's argument order."""
     return (

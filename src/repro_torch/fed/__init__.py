@@ -1,5 +1,5 @@
 """Federated substrate: partitioning, FedProx clients, batched cohort
-execution, aggregation and the sync/flat round engine."""
+execution, aggregation, and the sync round engines (flat and hierarchical)."""
 
 from repro_torch.fed.batched import (make_batched_local_train,
                                      stack_client_trees, train_clients_batched)
@@ -8,14 +8,19 @@ from repro_torch.fed.engine import (AGGREGATORS, EXECUTORS, Aggregator,
                                     FederatedEngine, FederatedSpec, FLResult,
                                     MetricsHook, RoundContext, RoundHook,
                                     SequentialExecutor, VerboseHook,
-                                    register_aggregator, register_executor)
+                                    WeightedFedAvg, register_aggregator,
+                                    register_executor)
+from repro_torch.fed.hierarchy import (EdgeCohort, HierarchicalEngine,
+                                       HierarchyConfig, edge_budgets)
 from repro_torch.fed.loop import run_federated
+from repro_torch.fed.partition import EdgePartition, partition_edges
 
 __all__ = [
     "AGGREGATORS", "EXECUTORS", "Aggregator", "BatchedExecutor",
-    "CohortUpdates", "FedAvg", "FederatedEngine", "FederatedSpec", "FLResult",
+    "CohortUpdates", "EdgeCohort", "EdgePartition", "FedAvg", "FederatedEngine",
+    "FederatedSpec", "FLResult", "HierarchicalEngine", "HierarchyConfig",
     "MetricsHook", "RoundContext", "RoundHook", "SequentialExecutor",
-    "VerboseHook", "make_batched_local_train", "register_aggregator",
-    "register_executor", "run_federated",
-    "stack_client_trees", "train_clients_batched",
+    "VerboseHook", "WeightedFedAvg", "edge_budgets", "make_batched_local_train",
+    "partition_edges", "register_aggregator", "register_executor",
+    "run_federated", "stack_client_trees", "train_clients_batched",
 ]

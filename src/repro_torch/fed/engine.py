@@ -1,4 +1,4 @@
-"""Composable federated round engine (paper Algorithm 1), sync/flat.
+"""Composable federated round engine (paper Algorithm 1), sync rounds.
 
 Counterpart of ``repro.fed.engine``. ``FederatedEngine`` owns the
 Algorithm-1 skeleton — select → local train → aggregate → metadata update →
@@ -6,7 +6,9 @@ eval — and delegates each stage to a plugin:
 
   * ``ClientExecutor`` — ``BatchedExecutor`` (the cohort in one vmapped
     call, ``fed.batched``) or ``SequentialExecutor`` (one call per client).
-  * ``Aggregator`` — ``FedAvg`` (Alg. 1 line 26).
+  * ``Aggregator`` — ``FedAvg`` (Alg. 1 line 26) or ``WeightedFedAvg``
+    (|D_k|-weighted); ``cohort_weights`` runs before execution so the
+    batched path folds the weights into its fused reduction.
   * ``RoundHook`` — ``MetricsHook`` (the series ``FLResult`` is built
     from), ``VerboseHook`` (one line per round).
 
@@ -18,8 +20,9 @@ by default both are drawn from ``torch.Generator``s seeded from
 as in the reference, consumed in ascending client-id order, so batches
 match the reference's bitwise.
 
-Only ``round_policy='sync'`` and ``topology='flat'`` are ported; the
-others raise.
+``FederatedSpec.build`` returns this flat engine or, for
+``topology='hierarchical'``, ``fed.hierarchy.HierarchicalEngine``. Only
+``round_policy='sync'`` is ported; 'async' raises.
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ from repro_torch.fed import client as fed_client
 from repro_torch.fed import server as fed_server
 
 NoiseFn = Callable[[int, int], torch.Tensor]  # (round_idx, K) -> (K,) Gumbel
+# (round_idx, stream, n) -> (n,) Gumbel; see fed.hierarchy for the streams.
+EdgeNoiseFn = Callable[[int, int, int], torch.Tensor]
 
 
 # ---------------------------------------------------------------------------
@@ -60,6 +65,9 @@ class FLResult:
     selected_history: np.ndarray  # (rounds, K) bool
     params: Any
     metric_name: str = "accuracy"
+    # Hierarchical runs: edge aggregates uploaded to the cloud per round.
+    # None for flat runs, where every selected client uploads.
+    cloud_uploads: Optional[np.ndarray] = None
     # Per-round host-observed phase timings (ms). On a card each phase ends
     # with a device synchronize, so they cover the device work.
     select_ms: Optional[np.ndarray] = None
@@ -114,12 +122,14 @@ def default_eval(model: Any, params: Any, batch: Dict[str, torch.Tensor]) -> flo
 @dataclasses.dataclass
 class CohortUpdates:
     """One round's cohort outcome. ``mean_loss`` / ``update_sqnorm`` are (M,)
-    in cohort order: tensors from the batched path, numpy from sequential."""
+    in cohort order: tensors from the batched path, numpy from sequential.
+    ``weights`` are the aggregator's cohort weights (None: unweighted)."""
 
     mean_loss: Any
     update_sqnorm: Any
     avg_params: Optional[Any] = None
     param_list: Optional[List[Any]] = None
+    weights: Optional[torch.Tensor] = None
 
 
 @runtime_checkable
@@ -127,11 +137,22 @@ class ClientExecutor(Protocol):
     """How the selected cohort trains for one round."""
 
     def run_round(self, params: Any, selected: np.ndarray,
-                  rng: np.random.Generator) -> CohortUpdates: ...
+                  rng: np.random.Generator,
+                  weights: Optional[torch.Tensor] = None) -> CohortUpdates: ...
 
 
 class Aggregator:
-    """How cohort updates become the next global model (Alg. 1 line 26)."""
+    """How cohort updates become the next global model (Alg. 1 line 26).
+
+    ``cohort_weights`` runs before execution, so the batched path can fold
+    the weights into its fused reduction; ``reduce`` turns the cohort into
+    the new global params.
+    """
+
+    name = "base"
+
+    def cohort_weights(self, selected: np.ndarray, data: Any) -> Optional[torch.Tensor]:
+        return None
 
     def reduce(self, global_params: Any, cohort: CohortUpdates) -> Any:
         raise NotImplementedError
@@ -141,6 +162,9 @@ class Aggregator:
             return cohort.avg_params
         if cohort.param_list is None:
             raise ValueError("cohort carries neither avg_params nor param_list")
+        if cohort.weights is not None:
+            return fed_server.fedavg_fused(
+                fed_batched.stack_client_trees(cohort.param_list), cohort.weights)
         return fed_server.fedavg(cohort.param_list)
 
 
@@ -216,15 +240,17 @@ class BatchedExecutor:
         self._train = fed_batched.make_batched_local_train(
             spec.model.loss, lr=spec.fed.lr, mu=spec.fed.mu)
 
-    def run_round(self, params, selected, rng) -> CohortUpdates:
+    def run_round(self, params, selected, rng, weights=None) -> CohortUpdates:
         stacked = _to_device(fed_batched.gather_stacked_batches(
             self.data, selected, self.steps, self.fed.local_batch, rng), self.device)
         cohort = fed_batched.train_clients_batched(
-            self._train, params, stacked, chunk=self.fed.client_chunk)
+            self._train, params, stacked, weights=weights,
+            chunk=self.fed.client_chunk)
         return CohortUpdates(
             mean_loss=cohort.mean_loss,
             update_sqnorm=cohort.update_sqnorm,
             avg_params=cohort.avg_params,
+            weights=weights,
         )
 
 
@@ -238,7 +264,7 @@ class SequentialExecutor:
         self.steps = spec.resolved_steps
         self.device = torch.device(spec.device)
 
-    def run_round(self, params, selected, rng) -> CohortUpdates:
+    def run_round(self, params, selected, rng, weights=None) -> CohortUpdates:
         m = len(selected)
         param_list: List[Any] = []
         losses = np.zeros(m, np.float32)
@@ -252,7 +278,7 @@ class SequentialExecutor:
             sqnorms[i] = float(res.update_sqnorm)
             param_list.append(res.params)
         return CohortUpdates(mean_loss=losses, update_sqnorm=sqnorms,
-                             param_list=param_list)
+                             param_list=param_list, weights=weights)
 
 
 @register_executor("batched")
@@ -273,6 +299,27 @@ def _make_sequential(spec: "FederatedSpec") -> SequentialExecutor:
 class FedAvg(Aggregator):
     """Unweighted mean over the cohort — the paper's Algorithm 1 line 26."""
 
+    name = "fedavg"
+
+    def reduce(self, global_params, cohort):
+        return self._mean(cohort)
+
+
+class WeightedFedAvg(Aggregator):
+    """|D_k|-weighted FedAvg (the original McMahan form): each client weighs
+    its example count, ``len(data.client_indices[k])``."""
+
+    name = "fedavg_weighted"
+
+    def __init__(self):
+        self._sizes: Optional[np.ndarray] = None  # per-run cache, O(K) once
+
+    def cohort_weights(self, selected, data):
+        if self._sizes is None:
+            self._sizes = np.asarray([len(ix) for ix in data.client_indices],
+                                     np.float32)
+        return torch.from_numpy(self._sizes[selected])
+
     def reduce(self, global_params, cohort):
         return self._mean(cohort)
 
@@ -280,6 +327,11 @@ class FedAvg(Aggregator):
 @register_aggregator("fedavg")
 def _make_fedavg(spec: "FederatedSpec") -> FedAvg:
     return FedAvg()
+
+
+@register_aggregator("fedavg_weighted")
+def _make_fedavg_weighted(spec: "FederatedSpec") -> WeightedFedAvg:
+    return WeightedFedAvg()
 
 
 # ---------------------------------------------------------------------------
@@ -339,8 +391,11 @@ class FederatedSpec:
     ``executor`` / ``aggregator`` accept registry names or instances;
     ``executor=None`` defers to ``fed.client_execution``.
     ``noise`` and ``init_params`` supply the draws the reference takes from
-    ``jax.random`` (see the module docstring). ``device`` defaults to
-    ``"cuda"``; on a machine without a card that raises at ``run()``.
+    ``jax.random`` (see the module docstring); a hierarchical run takes its
+    selection draws from ``edge_noise`` instead (``fed.hierarchy``), and
+    ``hier_cfg`` (a ``fed.hierarchy.HierarchyConfig``) holds its partition
+    and outer-budget knobs. ``device`` defaults to ``"cuda"``; on a machine
+    without a card that raises at ``run()``.
     """
 
     model: Any
@@ -359,6 +414,8 @@ class FederatedSpec:
     device: Union[str, torch.device] = "cuda"
     noise: Optional[NoiseFn] = None
     init_params: Optional[Dict[str, Any]] = None
+    hier_cfg: Optional[Any] = None
+    edge_noise: Optional[EdgeNoiseFn] = None
 
     @property
     def resolved_steps(self) -> int:
@@ -378,13 +435,30 @@ class FederatedSpec:
 
     def build(self) -> "FederatedEngine":
         policy = self.resolved_round_policy
-        topo = self.resolved_topology
+        if policy not in ("sync", "async"):
+            raise ValueError(f"round_policy must be 'sync' or 'async', got {policy!r}")
         if policy != "sync":
             raise NotImplementedError(
                 f"round_policy={policy!r} is not ported yet; only 'sync' is")
+        topo = self.resolved_topology
+        if topo == "hierarchical":
+            from repro_torch.fed.hierarchy import HierarchicalEngine
+
+            return HierarchicalEngine(self)
         if topo != "flat":
-            raise NotImplementedError(
-                f"topology={topo!r} is not ported yet; only 'flat' is")
+            raise ValueError(
+                f"topology must be 'flat' or 'hierarchical', got {topo!r}")
+        if self.hier_cfg is not None or self.edge_noise is not None:
+            raise ValueError(
+                "hier_cfg/edge_noise are only consumed by topology='hierarchical'; "
+                "the flat engine has no edge tier to apply them to")
+        if self.fed.edge_count or self.fed.edge_budget:
+            # Edge sizing without topology='hierarchical' would run a flat
+            # federation that looks two-tier.
+            raise ValueError(
+                "FedConfig.edge_count/edge_budget are only consumed by "
+                "topology='hierarchical'; set FedConfig.topology (or the "
+                "spec's topology field) or drop the edge fields")
         return FederatedEngine(self)
 
 
@@ -447,6 +521,20 @@ class FederatedEngine:
         self.rng: Optional[np.random.Generator] = None
 
     def run(self) -> FLResult:
+        self._start()
+        ctx = RoundContext(engine=self)
+        eval_batch = _to_device(self.spec.data.eval_batch(), self.device)
+        for t in range(self.spec.fed.rounds):
+            ctx.round_idx = t
+            for h in self.hooks:
+                h.on_round_start(ctx)
+            self._run_round(ctx, t, eval_batch)
+            for h in self.hooks:
+                h.on_round_end(ctx)
+        return self._result({})
+
+    def _start(self) -> None:
+        """Resolve the device and draw the run's initial state."""
         spec, fed = self.spec, self.spec.fed
         dev = self.device = resolve_device(spec.device)
         if spec.init_params is not None:
@@ -467,17 +555,6 @@ class FederatedEngine:
         self.rng = np.random.default_rng(fed.seed)
         self.metrics.reset()
 
-        ctx = RoundContext(engine=self)
-        eval_batch = _to_device(spec.data.eval_batch(), dev)
-        for t in range(fed.rounds):
-            ctx.round_idx = t
-            for h in self.hooks:
-                h.on_round_start(ctx)
-            self._run_round(ctx, t, eval_batch)
-            for h in self.hooks:
-                h.on_round_end(ctx)
-        return self._result()
-
     def round_noise(self, t: int) -> torch.Tensor:
         """Round t's (K,) f32 Gumbel noise, on the run's device."""
         g = self.noise(t, self.spec.data.num_clients)
@@ -491,7 +568,9 @@ class FederatedEngine:
         selected = np.flatnonzero(mask_np)
         t1 = time.perf_counter()
 
-        cohort = self.executor.run_round(self.params, selected, self.rng)
+        weights = self.aggregator.cohort_weights(selected, spec.data)
+        cohort = self.executor.run_round(self.params, selected, self.rng,
+                                         weights=weights)
         synchronize(dev)
         t2 = time.perf_counter()
         self.params = self.aggregator.reduce(self.params, cohort)
@@ -525,7 +604,9 @@ class FederatedEngine:
             k, torch.from_numpy(selected), cohort.mean_loss, cohort.update_sqnorm)
         return loss_t.cpu().numpy(), sq_t.cpu().numpy()
 
-    def _result(self) -> FLResult:
+    def _result(self, extras: Dict[str, Any]) -> FLResult:
+        """The run's ``FLResult``; subclasses add their series to ``extras``
+        (the hierarchical engine its ``cloud_uploads``)."""
         sel_hist = np.stack(self.metrics.selected)
         return FLResult(
             accuracy=np.array(self.metrics.metric),
@@ -534,6 +615,7 @@ class FederatedEngine:
             selected_history=sel_hist,
             params=self.params,
             metric_name=self.metric_name,
+            cloud_uploads=extras.get("cloud_uploads"),
             select_ms=np.asarray(self.metrics.select_ms),
             execute_ms=np.asarray(self.metrics.execute_ms),
             aggregate_ms=np.asarray(self.metrics.aggregate_ms),

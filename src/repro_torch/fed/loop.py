@@ -3,6 +3,10 @@
     from repro_torch.fed import FederatedSpec
     res = FederatedSpec(model, fed, data, selector="heterosel_pallas",
                         executor="batched").build().run()
+
+``topology='hierarchical'`` (or ``fed.topology``) with ``fed.edge_count``
+runs two-tier rounds (``fed.hierarchy``); ``hier_cfg`` holds the partition
+and outer-budget knobs and ``edge_noise`` the per-edge draws.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ import torch
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.scoring import HeteRoScoreConfig
 from repro_torch.core.selection import SelectorConfig
-from repro_torch.fed.engine import FederatedSpec, FLResult, NoiseFn
+from repro_torch.fed.engine import EdgeNoiseFn, FederatedSpec, FLResult, NoiseFn
 from repro_torch.models.model import Model
 
 
@@ -36,6 +40,8 @@ def run_federated(
     device: str | torch.device = "cuda",
     noise: Optional[NoiseFn] = None,
     init_params: Optional[Dict[str, Any]] = None,
+    hier_cfg: Optional[Any] = None,          # fed.hierarchy.HierarchyConfig
+    edge_noise: Optional[EdgeNoiseFn] = None,
 ) -> FLResult:
     """Run ``fed.rounds`` federated rounds and collect the paper's metrics."""
     return FederatedSpec(
@@ -45,4 +51,5 @@ def run_federated(
         hooks=list(hooks), verbose=verbose, round_policy=round_policy,
         topology=topology, device=device,
         noise=noise, init_params=init_params,
+        hier_cfg=hier_cfg, edge_noise=edge_noise,
     ).build().run()

@@ -2,7 +2,10 @@
 
 Unweighted FedAvg over the selected subset, w_t ← (1/m) Σ_{k∈S_t} w_t^k,
 as one fused reduction per leaf over the batched cohort's leading client
-axis (``fedavg_fused``), or over a list of client dicts (``fedavg``).
+axis (``fedavg_fused``, which also takes |D_k| weights), or over a list of
+client dicts (``fedavg``). ``params_delta_f32`` and
+``apply_weighted_deltas`` are the hierarchical cloud stage: edge aggregates
+travel as f32 deltas and combine weighted by cohort size.
 """
 
 from __future__ import annotations
@@ -48,3 +51,28 @@ def fedavg_fused(stacked_params: Params,
         w = w / torch.clamp_min(torch.sum(w), 1e-30)
     summed = weighted_sum_stacked(stacked_params, w)
     return {k: s.to(stacked_params[k].dtype) for k, s in summed.items()}
+
+
+def params_delta_f32(new_params: Params, anchor: Params) -> Params:
+    """Δ = new − anchor, in f32 whatever the param dtype."""
+    return {k: new_params[k].to(torch.float32) - anchor[k].to(torch.float32)
+            for k in anchor}
+
+
+def apply_weighted_deltas(global_params: Params, deltas: Sequence[Params],
+                          weights: torch.Tensor) -> Params:
+    """w ← w + Σ_i w̄_i Δ_i, weights normalized to sum to 1.
+
+    The hierarchical cloud stage: ``deltas`` are per-edge aggregates
+    relative to the round's global model, weighted by edge cohort size.
+    Accumulation runs in f32; output leaves keep the param dtype.
+    """
+    dev = next(iter(global_params.values())).device
+    w = torch.as_tensor(weights).to(device=dev, dtype=torch.float32)
+    w = w / torch.clamp_min(torch.sum(w), 1e-30)
+
+    def upd(g: torch.Tensor, ds) -> torch.Tensor:
+        s = sum(wi * d.to(torch.float32) for wi, d in zip(w, ds))
+        return (g.to(torch.float32) + s).to(g.dtype)
+
+    return {k: upd(g, [d[k] for d in deltas]) for k, g in global_params.items()}

@@ -1,34 +1,43 @@
-// Fused HeteRo-Select scoring and Gumbel-top-m selection for Hopper (sm_90a).
+// Fused HeteRo-Select scoring, softmax and Gumbel-top-m selection for Hopper
+// (sm_90a).
 //
-// Replaces the two Pallas TPU kernels of the reference's main path:
-//   K1  stats_kernel   <- src/repro/kernels/score_select.py:_stats_kernel
-//                         (launched from _run_stats)
-//   K2  select_kernel  <- src/repro/kernels/score_select.py:_select_kernel
-//                         (with _score_body and _block_scores; launched from
-//                         fused_score_select)
-// The plain PyTorch versions of both live beside the wrappers in
-// repro_torch/kernels/score_select.py (score_stats_plain, score_select_plain).
+// Replaces four Pallas TPU kernels of the reference
+// (src/repro/kernels/score_select.py):
+//   K1  stats_kernel                <- _stats_kernel (launched from _run_stats)
+//   K2  select_kernel<T, true>      <- _select_kernel (with _score_body and
+//                                      _block_scores; fused_score_select)
+//   K3  select_kernel<T, false>     <- _score_kernel (fused_score_probs): K2
+//                                      with the sampling compiled out
+//   K4  segment_kernel              <- _segment_kernel (segmented_score_probs)
+// The plain PyTorch versions live beside the wrappers in
+// repro_torch/kernels/score_select.py (score_stats_plain, score_select_plain,
+// score_probs_plain, segment_probs_plain).
 //
 // Operand: one stacked (9, kpad) row-major array of f32 or bf16, rows in
-// core.state.score_inputs order plus the staleness-override row; kpad is a
-// whole number of blocks. Column c < klim is a client, the rest padding.
+// core.state.score_inputs order plus the staleness-override row. For K1-K3
+// kpad is a whole number of blocks and column c < klim is a client, the rest
+// padding. For K4 kpad = E * seg, edge-major: edge e owns columns
+// [e*seg, e*seg + sizes[e]), the rest of its slice is padding.
 //
-// Bound on an H100 (3.35 TB/s HBM): both kernels are memory-bound. Per
-// client K1 reads 4 rows (16 B in f32, 8 B in bf16); K2 reads 8 rows (9 with
-// the override) plus 4 B of Gumbel noise and writes 8 B (score, exp), so
-// ~44 B in f32 and ~28 B in bf16. Arithmetic is a few dozen flops per
-// client, far below the card's 67 TFLOP/s of f32. At K = 2^20 that is
-// ~5 us for K1 and ~14 us for K2 in f32. At the paper's K = 12 both are
-// launch-latency bound.
+// Bound on an H100 (3.35 TB/s HBM): all four kernels are memory-bound.
+// Per client K1 reads 4 rows (16 B in f32, 8 B in bf16); K2 reads 8 rows (9
+// with the override) plus 4 B of Gumbel noise and writes 8 B (score, exp),
+// so ~44 B in f32 and ~28 B in bf16; K3 is K2 without the noise and the
+// candidates (~40 B / ~24 B). K4 reads the 8 (9) rows of each valid client
+// once and writes probs and scores for every slot of the (E*seg,) layout.
+// Arithmetic is a few dozen flops per client, far below the card's 67
+// TFLOP/s of f32. At K = 2^20 that is ~5 us for K1 and ~12-14 us for K2, K3
+// and K4 in f32. At the paper's K = 12 every kernel is launch-latency bound.
 //
 // Design:
-//  * One CTA of 256 threads per block of BLOCK <= 2048 clients. The TPU
-//    version streamed 32768-client blocks through VMEM; on Hopper a block
-//    must fit shared memory for the in-block sort (2048 x 8 B = 16 KB) and
-//    K = 2^20 must give enough CTAs (512) to cover 132 SMs several times.
-//    The selected set does not depend on BLOCK: a global top-m element is
-//    beaten by at most m-1 others, so it survives its block's top-min(m, B).
-//  * Threads walk the block with stride 256, so a warp reads 32 neighbouring
+//  * K1-K3: one CTA of 256 threads per block of BLOCK <= 2048 clients. The
+//    TPU version streamed 32768-client blocks through VMEM; on Hopper a
+//    block must fit shared memory for the in-block sort (2048 x 8 B = 16 KB)
+//    and K = 2^20 must give enough CTAs (512) to cover 132 SMs several
+//    times. The selected set does not depend on BLOCK: a global top-m
+//    element is beaten by at most m-1 others, so it survives its block's
+//    top-min(m, B).
+//  * Threads walk a block with stride 256, so a warp reads 32 neighbouring
 //    columns of a row: coalesced. bf16 rows are widened with
 //    __bfloat162float in registers; no f32 copy of the state is made.
 //  * Block reductions (min/max/sum) use warp shuffles, then one shared-memory
@@ -36,10 +45,20 @@
 //  * K2 keeps z = s/tau in shared memory between its passes, so scores are
 //    computed once; the perturbed logits z + g and their column ids are then
 //    bitonic-sorted in shared memory (value descending, index ascending) and
-//    the first min(m, B) are written out.
+//    the first min(m, B) are written out. K3 stops after the exps and the
+//    block's (m_b, l_b); the host merges the normalizers.
+//  * K4: one CTA per edge. An edge slice can hold 32768 clients (K = 2^20,
+//    E = 32), more than a pass of shared memory, so a block-stride loop
+//    over the slice takes the place of the TPU's one-shot VMEM block:
+//    pass A reduces the edge's statistics, pass B writes the scores and
+//    keeps the running max of z, pass C writes e = exp(z - max) and sums it,
+//    and a last pass rescales in place to e / max(sum e, 1e-30). Passes C
+//    and D reread what the same thread wrote (L1/L2 hits). Padding slots
+//    are written as 0.0 and their state is never read. With few edges most
+//    SMs idle; the kernel is simple and right first.
 //  * Arithmetic follows the plain version op for op (IEEE division, expf,
 //    log1pf) and the library is built with --fmad=false, so a score differs
-//    from the plain version's only through the order of the sum in K1.
+//    from the plain version's only through the order of the sums.
 //
 // C interface (loaded with ctypes): every entry returns cudaGetLastError()
 // after its launch, 0 on success. Launches go to the caller's stream; nothing
@@ -178,7 +197,8 @@ __device__ __forceinline__ bool goes_before(float va, int ia, float vb, int ib) 
   return va > vb || (va == vb && ia < ib);
 }
 
-template <typename T>
+// kSample = true is K2, false is K3 (no noise, no sort, no candidates).
+template <typename T, bool kSample>
 __global__ void __launch_bounds__(kThreads)
 select_kernel(const T* __restrict__ st, const float* __restrict__ gumbel,
               const float* __restrict__ glob, int64_t kpad, int block, int64_t klim,
@@ -188,7 +208,7 @@ select_kernel(const T* __restrict__ st, const float* __restrict__ gumbel,
               int* __restrict__ cidx) {
   extern __shared__ float smem[];
   float* key = smem;                              // [block] z, then z + g
-  int* idx = reinterpret_cast<int*>(smem + block);  // [block] column in block
+  int* idx = reinterpret_cast<int*>(smem + block);  // [block] column (K2 only)
   __shared__ float red[kWarps + 1];
   __shared__ float g[4];
   if (threadIdx.x < 4) g[threadIdx.x] = glob[threadIdx.x];
@@ -213,40 +233,106 @@ select_kernel(const T* __restrict__ st, const float* __restrict__ gumbel,
     const float e = c < klim ? expf(z - m_b) : 0.f;
     e_out[c] = e;
     lsum += e;
-    // Ranking z + g ranks log p + g: the softmax shift is common to all.
-    key[i] = z + gumbel[c];
-    idx[i] = i;
+    if constexpr (kSample) {
+      // Ranking z + g ranks log p + g: the softmax shift is common to all.
+      key[i] = z + gumbel[c];
+      idx[i] = i;
+    }
   }
   const float l_b = block_reduce(lsum, 0.f, SumOp(), red);
   if (threadIdx.x == 0) {
     part[2 * blockIdx.x] = m_b;
     part[2 * blockIdx.x + 1] = l_b;
   }
-
-  // Bitonic sort of (key, idx) in shared memory; block is a power of two.
-  for (int size = 2; size <= block; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < block; i += kThreads) {
-        const int j = i ^ stride;
-        if (j > i) {
-          const float vi = key[i], vj = key[j];
-          const int ii = idx[i], ij = idx[j];
-          const bool first_half = (i & size) == 0;
-          const bool swap = first_half ? goes_before(vj, ij, vi, ii)
-                                       : goes_before(vi, ii, vj, ij);
-          if (swap) {
-            key[i] = vj; key[j] = vi;
-            idx[i] = ij; idx[j] = ii;
+  if constexpr (kSample) {
+    // Bitonic sort of (key, idx) in shared memory; block is a power of two.
+    for (int size = 2; size <= block; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        __syncthreads();
+        for (int i = threadIdx.x; i < block; i += kThreads) {
+          const int j = i ^ stride;
+          if (j > i) {
+            const float vi = key[i], vj = key[j];
+            const int ii = idx[i], ij = idx[j];
+            const bool first_half = (i & size) == 0;
+            const bool swap = first_half ? goes_before(vj, ij, vi, ii)
+                                         : goes_before(vi, ii, vj, ij);
+            if (swap) {
+              key[i] = vj; key[j] = vi;
+              idx[i] = ij; idx[j] = ii;
+            }
           }
         }
       }
     }
+    __syncthreads();
+    for (int i = threadIdx.x; i < mb; i += kThreads) {
+      cval[(int64_t)blockIdx.x * mb + i] = key[i];
+      cidx[(int64_t)blockIdx.x * mb + i] = (int)(base + idx[i]);
+    }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < mb; i += kThreads) {
-    cval[(int64_t)blockIdx.x * mb + i] = key[i];
-    cidx[(int64_t)blockIdx.x * mb + i] = (int)(base + idx[i]);
+}
+
+// K4: one CTA per edge; stats, scores and softmax inside the edge's slice.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+segment_kernel(const T* __restrict__ st, const int* __restrict__ sizes,
+               int64_t kpad, int seg, float t, float tau, int use_ov,
+               float decay, ScoreCfg cfg, float* __restrict__ probs,
+               float* __restrict__ scores) {
+  __shared__ float red[kWarps + 1];
+  const int64_t base = (int64_t)blockIdx.x * seg;
+  const int n = min(max(sizes[blockIdx.x], 0), seg);
+
+  // Pass A: the edge's statistics over its n valid members.
+  float lmin = kBig, lmax = -kBig, sumsq = 0.f, nobs = 0.f, hmax = 0.f;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int64_t c = base + i;
+    if (load(st + ROW_HASL * kpad + c) > 0.f) {
+      const float loss = load(st + ROW_LOSS * kpad + c);
+      lmin = fminf(lmin, loss);
+      lmax = fmaxf(lmax, loss);
+      sumsq += load(st + ROW_SQ * kpad + c);
+      nobs += 1.f;
+    }
+    hmax = fmaxf(hmax, load(st + ROW_CNT * kpad + c));
+  }
+  lmin = block_reduce(lmin, kBig, MinOp(), red);
+  lmax = block_reduce(lmax, -kBig, MaxOp(), red);
+  sumsq = block_reduce(sumsq, 0.f, SumOp(), red);
+  nobs = block_reduce(nobs, 0.f, SumOp(), red);
+  hmax = block_reduce(hmax, 0.f, MaxOp(), red);
+  const float g[4] = {lmin, lmax, sumsq / fmaxf(nobs, 1.f), fmaxf(hmax, 1.f)};
+
+  // Pass B: scores; padding slots get 0.0 in both outputs.
+  float zmax = -kBig;
+  for (int i = threadIdx.x; i < seg; i += kThreads) {
+    const int64_t c = base + i;
+    if (i < n) {
+      const float s = client_score(st, kpad, c, g, t, decay, use_ov, cfg);
+      scores[c] = s;
+      zmax = fmaxf(zmax, s / tau);
+    } else {
+      scores[c] = 0.f;
+      probs[c] = 0.f;
+    }
+  }
+  const float m = block_reduce(zmax, -kBig, MaxOp(), red);
+
+  // Pass C: exponentials and their sum (each thread rereads its own scores).
+  float lsum = 0.f;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int64_t c = base + i;
+    const float e = expf(scores[c] / tau - m);
+    probs[c] = e;
+    lsum += e;
+  }
+  const float l = fmaxf(block_reduce(lsum, 0.f, SumOp(), red), 1e-30f);
+
+  // Pass D: normalize in place.
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int64_t c = base + i;
+    probs[c] = probs[c] / l;
   }
 }
 
@@ -276,13 +362,48 @@ int hs_select(int dtype, const void* stacked, const float* gumbel,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(block) * (sizeof(float) + sizeof(int));
   if (dtype == 0) {
-    select_kernel<float><<<nblocks, kThreads, smem, s>>>(
+    select_kernel<float, true><<<nblocks, kThreads, smem, s>>>(
         static_cast<const float*>(stacked), gumbel, glob, kpad, block, klim, t,
         tau, use_ov, decay, *cfg, mb, scores, e, part, cval, cidx);
   } else {
-    select_kernel<__nv_bfloat16><<<nblocks, kThreads, smem, s>>>(
+    select_kernel<__nv_bfloat16, true><<<nblocks, kThreads, smem, s>>>(
         static_cast<const __nv_bfloat16*>(stacked), gumbel, glob, kpad, block,
         klim, t, tau, use_ov, decay, *cfg, mb, scores, e, part, cval, cidx);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int hs_score(int dtype, const void* stacked, const float* glob, long long kpad,
+             int block, int nblocks, long long klim, float t, float tau,
+             int use_ov, float decay, const ScoreCfg* cfg, float* scores,
+             float* e, float* part, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = static_cast<size_t>(block) * sizeof(float);
+  if (dtype == 0) {
+    select_kernel<float, false><<<nblocks, kThreads, smem, s>>>(
+        static_cast<const float*>(stacked), nullptr, glob, kpad, block, klim, t,
+        tau, use_ov, decay, *cfg, 0, scores, e, part, nullptr, nullptr);
+  } else {
+    select_kernel<__nv_bfloat16, false><<<nblocks, kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(stacked), nullptr, glob, kpad, block,
+        klim, t, tau, use_ov, decay, *cfg, 0, scores, e, part, nullptr, nullptr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int hs_segment(int dtype, const void* stacked, const int* sizes, long long kpad,
+               int num_edges, int seg, float t, float tau, int use_ov,
+               float decay, const ScoreCfg* cfg, float* probs, float* scores,
+               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    segment_kernel<float><<<num_edges, kThreads, 0, s>>>(
+        static_cast<const float*>(stacked), sizes, kpad, seg, t, tau, use_ov,
+        decay, *cfg, probs, scores);
+  } else {
+    segment_kernel<__nv_bfloat16><<<num_edges, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(stacked), sizes, kpad, seg, t, tau,
+        use_ov, decay, *cfg, probs, scores);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""Public wrappers around the hand-written kernels."""
+"""Public wrappers around the hand-written kernels (K1–K4)."""
 
 from __future__ import annotations
 
@@ -18,5 +18,36 @@ def heterosel_topm(state: ClientState, round_idx, tau, m: int, gumbel,
     return _ss.fused_score_select(
         *score_inputs(state),
         round_idx=round_idx, tau=tau, m=m, gumbel=gumbel, cfg=cfg,
+        staleness_override=staleness_override,
+    )
+
+
+def heterosel_probs(state: ClientState, round_idx, tau, cfg: HeteRoScoreConfig, *,
+                    staleness_override=None, block=None):
+    """Fused additive scoring + softmax (Eqs 1–12) through K1 and K3.
+
+    Returns ``(probs (K,), scores (K,))``; ``block`` overrides the client
+    block width (a power of two in [32, 2048]).
+    """
+    return _ss.fused_score_probs(
+        *score_inputs(state),
+        round_idx=round_idx, tau=tau, cfg=cfg,
+        staleness_override=staleness_override, block=block,
+    )
+
+
+def heterosel_probs_segmented(state: ClientState, sizes, *, round_idx, tau,
+                              cfg: HeteRoScoreConfig, seg: int,
+                              staleness_override=None):
+    """Per-edge fused scoring over an edge-major (E·seg,) state in one launch
+    of K4 — the hierarchical engine's inner stage.
+
+    ``state`` is laid out edge-major with ``seg``-wide slices (see
+    ``fed.hierarchy``); ``sizes`` is the (E,) member count of each slice.
+    Returns ``(probs, scores)`` in the same layout, 0.0 in padding slots.
+    """
+    return _ss.segmented_score_probs(
+        *score_inputs(state),
+        sizes=sizes, round_idx=round_idx, tau=tau, cfg=cfg, seg=seg,
         staleness_override=staleness_override,
     )

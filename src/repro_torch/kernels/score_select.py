@@ -1,7 +1,6 @@
 """Fused HeteRo-Select scoring, softmax and Gumbel-top-m selection (Eqs 1–12).
 
-Port of ``repro.kernels.score_select.fused_score_select``, the two-pass
-kernel the main path runs every round under ``selector="heterosel_pallas"``:
+Port of the reference's ``repro.kernels.score_select``, four kernels:
 
   * K1 ``score_stats`` (replaces ``_stats_kernel``): each block of clients is
     reduced to five partials (loss min/max over observed clients, Σ‖Δw‖²
@@ -11,9 +10,17 @@ kernel the main path runs every round under ``selector="heterosel_pallas"``:
     the additive scores, the block softmax exponentials with their
     (m_b, l_b) normalizer pair, and its top-min(m, block) Gumbel-perturbed
     candidates. ``_normalize`` merges the normalizers and a top-m over the
-    candidates picks the cohort.
+    candidates picks the cohort. ``fused_score_select`` runs K1 then K2: the
+    flat engine's ``heterosel_pallas`` path.
+  * K3 ``score_probs`` (replaces ``_score_kernel``): K2 without the
+    sampling. ``fused_score_probs`` runs K1, K3 and ``_normalize`` and
+    returns ``(probs, scores)``.
+  * K4 ``segment_probs`` (replaces ``_segment_kernel``): E edges in one
+    launch, each edge's statistics, scores and softmax inside its own slice
+    of an edge-major ``(E·seg,)`` layout. ``segmented_score_probs`` is the
+    hierarchical engine's inner stage under ``heterosel_pallas``.
 
-Both kernels are CUDA C++ for sm_90a (``csrc/score_select.cu``, whose header
+All four are CUDA C++ for sm_90a (``csrc/score_select.cu``, whose header
 gives their bound and design). Each wrapper below takes its plain PyTorch
 version for a tensor on the CPU, and launches its kernel for a CUDA tensor —
 there is no fallback from one to the other. ``LAUNCHES`` counts kernel
@@ -49,7 +56,8 @@ NROWS = 9
 NSTATS = 5
 
 # Kernel launches since the last reset, by kernel.
-LAUNCHES = {"score_stats": 0, "score_select": 0}
+LAUNCHES = {"score_stats": 0, "score_select": 0, "score_probs": 0,
+            "segment_probs": 0}
 
 
 def reset_launches() -> None:
@@ -77,6 +85,12 @@ def _library() -> ctypes.CDLL:
     lib.hs_select.argtypes = [i, p, p, p, ll, i, i, ll, f, f, i, f,
                               ctypes.POINTER(_ScoreCfg), i, p, p, p, p, p, p]
     lib.hs_select.restype = i
+    lib.hs_score.argtypes = [i, p, p, ll, i, i, ll, f, f, i, f,
+                             ctypes.POINTER(_ScoreCfg), p, p, p, p]
+    lib.hs_score.restype = i
+    lib.hs_segment.argtypes = [i, p, p, ll, i, i, f, f, i, f,
+                               ctypes.POINTER(_ScoreCfg), p, p, p]
+    lib.hs_segment.restype = i
     lib.hs_error_string.argtypes = [i]
     lib.hs_error_string.restype = ctypes.c_char_p
     return lib
@@ -102,6 +116,19 @@ def _dtype_code(x: torch.Tensor) -> int:
 
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _cfg_struct(cfg: HeteRoScoreConfig) -> _ScoreCfg:
+    return _ScoreCfg(cfg.w_value, cfg.w_diversity, cfg.w_momentum, cfg.w_fairness,
+                     cfg.w_staleness, cfg.w_norm, cfg.eta, cfg.gamma, cfg.alpha,
+                     float(cfg.t_max))
+
+
+def _scalars(round_idx, tau, cfg: HeteRoScoreConfig) -> tuple[float, float, float]:
+    """(t, tau, decay) as exact f32 values, as the reference's scalar lanes."""
+    t = float(torch.tensor(float(round_idx), dtype=torch.float32))
+    tau = float(torch.as_tensor(tau, dtype=torch.float32))
+    return t, tau, float(diversity_decay(round_idx, cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -209,8 +236,12 @@ def _combine_stats(stats: torch.Tensor) -> torch.Tensor:
 def _block_scores_plain(x: torch.Tensor, glob: torch.Tensor, *, t: float,
                         decay: float, use_ov: bool,
                         cfg: HeteRoScoreConfig) -> torch.Tensor:
-    """Six score components + Eq (1) additive combination, (kpad,) f32.
+    """Six score components + Eq (1) additive combination, f32 in the shape
+    of one row of ``x``.
 
+    ``glob`` holds (lmin, lmax, avgsq, hmax) on its first axis; each entry
+    broadcasts against a row, so it is (4,) for one global set of
+    statistics or (4, E, 1) for per-edge statistics over an (E, seg) view.
     The op order matches ``client_score`` in csrc/score_select.cu. Every
     divisor is a tensor on ``x``'s device: a CPU scalar divisor would let
     PyTorch's CUDA division multiply by a reciprocal instead.
@@ -247,13 +278,11 @@ def _block_scores_plain(x: torch.Tensor, glob: torch.Tensor, *, t: float,
             + cfg.w_norm * (npen - 1.0))
 
 
-def score_select_plain(stacked, glob, gumbel, *, k: int, block: int, t: float,
-                       tau: float, use_ov: bool, decay: float,
-                       cfg: HeteRoScoreConfig, mb: int):
-    """Plain version of K2. Returns ``(scores (kpad,), e (kpad,),
-    part (nblocks, 2) = (m_b, l_b), cval (nblocks, mb) f32,
-    cidx (nblocks, mb) int32)``; candidates are ordered by value descending,
-    ties by column ascending."""
+def _block_softmax_plain(stacked, glob, *, k: int, block: int, t: float,
+                         tau: float, use_ov: bool, decay: float,
+                         cfg: HeteRoScoreConfig):
+    """Pass 2 shared by K2 and K3: scores (kpad,), z and e (nblocks, block),
+    and the (nblocks, 2) (m_b, l_b) pairs."""
     dev = stacked.device
     kpad = stacked.shape[1]
     nblocks = kpad // block
@@ -264,12 +293,31 @@ def score_select_plain(stacked, glob, gumbel, *, k: int, block: int, t: float,
     z = torch.where(valid, (s / tau_t).view(nblocks, block), -BIG)
     m_b = z.amax(1)
     e = torch.where(valid, torch.exp(z - m_b[:, None]), 0.0)
-    l_b = e.sum(1)
+    return s, z, e, torch.stack([m_b, e.sum(1)], dim=1)
+
+
+def score_select_plain(stacked, glob, gumbel, *, k: int, block: int, t: float,
+                       tau: float, use_ov: bool, decay: float,
+                       cfg: HeteRoScoreConfig, mb: int):
+    """Plain version of K2. Returns ``(scores (kpad,), e (kpad,),
+    part (nblocks, 2) = (m_b, l_b), cval (nblocks, mb) f32,
+    cidx (nblocks, mb) int32)``; candidates are ordered by value descending,
+    ties by column ascending."""
+    s, z, e, part = _block_softmax_plain(stacked, glob, k=k, block=block, t=t,
+                                         tau=tau, use_ov=use_ov, decay=decay, cfg=cfg)
+    nblocks = z.shape[0]
     pert = z + gumbel.view(nblocks, block)
     vals, loc = torch.sort(pert, dim=1, descending=True, stable=True)
-    first = torch.arange(nblocks, device=dev)[:, None] * block
-    return (s, e.reshape(-1), torch.stack([m_b, l_b], dim=1),
+    first = torch.arange(nblocks, device=stacked.device)[:, None] * block
+    return (s, e.reshape(-1), part,
             vals[:, :mb].contiguous(), (loc[:, :mb] + first).to(torch.int32))
+
+
+def _check_glob(glob: torch.Tensor, stacked: torch.Tensor) -> None:
+    if glob.dtype != torch.float32 or tuple(glob.shape) != (4,) \
+            or not glob.is_contiguous() or glob.device != stacked.device:
+        raise ValueError(f"glob must be a contiguous float32 (4,) tensor on "
+                         f"{stacked.device}")
 
 
 def score_select(stacked, glob, gumbel, *, k: int, block: int, t: float,
@@ -280,11 +328,11 @@ def score_select(stacked, glob, gumbel, *, k: int, block: int, t: float,
     tensors → the sm_90a kernel."""
     nblocks = _check_stacked(stacked, block)
     kpad = stacked.shape[1]
-    for name, a, shape in (("gumbel", gumbel, (kpad,)), ("glob", glob, (4,))):
-        if a.dtype != torch.float32 or tuple(a.shape) != shape \
-                or not a.is_contiguous() or a.device != stacked.device:
-            raise ValueError(f"{name} must be a contiguous float32 {shape} tensor "
-                             f"on {stacked.device}")
+    _check_glob(glob, stacked)
+    if gumbel.dtype != torch.float32 or tuple(gumbel.shape) != (kpad,) \
+            or not gumbel.is_contiguous() or gumbel.device != stacked.device:
+        raise ValueError(f"gumbel must be a contiguous float32 ({kpad},) tensor "
+                         f"on {stacked.device}")
     if not 1 <= mb <= block:
         raise ValueError(f"mb must be in [1, {block}], got {mb}")
     if stacked.device.type == "cpu":
@@ -300,12 +348,10 @@ def score_select(stacked, glob, gumbel, *, k: int, block: int, t: float,
     part = torch.empty((nblocks, 2), **f32)
     cval = torch.empty((nblocks, mb), **f32)
     cidx = torch.empty((nblocks, mb), dtype=torch.int32, device=dev)
-    c = _ScoreCfg(cfg.w_value, cfg.w_diversity, cfg.w_momentum, cfg.w_fairness,
-                  cfg.w_staleness, cfg.w_norm, cfg.eta, cfg.gamma, cfg.alpha,
-                  float(cfg.t_max))
     rc = lib.hs_select(_dtype_code(stacked), stacked.data_ptr(), gumbel.data_ptr(),
                        glob.data_ptr(), kpad, block, nblocks, k, t, tau,
-                       int(use_ov), decay, ctypes.byref(c), mb, scores.data_ptr(),
+                       int(use_ov), decay, ctypes.byref(_cfg_struct(cfg)), mb,
+                       scores.data_ptr(),
                        e.data_ptr(), part.data_ptr(), cval.data_ptr(),
                        cidx.data_ptr(), _stream(dev))
     _raise_on(lib, rc, "score_select")
@@ -314,7 +360,111 @@ def score_select(stacked, glob, gumbel, *, k: int, block: int, t: float,
 
 
 # ---------------------------------------------------------------------------
-# The fused selection
+# K3: scores and block softmax pieces, no sampling
+# ---------------------------------------------------------------------------
+
+
+def score_probs_plain(stacked, glob, *, k: int, block: int, t: float, tau: float,
+                      use_ov: bool, decay: float, cfg: HeteRoScoreConfig):
+    """Plain version of K3: ``(scores (kpad,), e (kpad,), part (nblocks, 2))``,
+    the first three outputs of K2."""
+    s, _, e, part = _block_softmax_plain(stacked, glob, k=k, block=block, t=t,
+                                         tau=tau, use_ov=use_ov, decay=decay, cfg=cfg)
+    return s, e.reshape(-1), part
+
+
+def score_probs(stacked, glob, *, k: int, block: int, t: float, tau: float,
+                use_ov: bool, decay: float, cfg: HeteRoScoreConfig):
+    """K3: scores and softmax pieces (see the plain version). CPU tensors →
+    ``score_probs_plain``; CUDA tensors → the sm_90a kernel."""
+    nblocks = _check_stacked(stacked, block)
+    _check_glob(glob, stacked)
+    if stacked.device.type == "cpu":
+        return score_probs_plain(stacked, glob, k=k, block=block, t=t, tau=tau,
+                                 use_ov=use_ov, decay=decay, cfg=cfg)
+    _check_card(stacked.device)
+    lib = _library()
+    dev = stacked.device
+    kpad = stacked.shape[1]
+    scores = torch.empty(kpad, dtype=torch.float32, device=dev)
+    e = torch.empty(kpad, dtype=torch.float32, device=dev)
+    part = torch.empty((nblocks, 2), dtype=torch.float32, device=dev)
+    rc = lib.hs_score(_dtype_code(stacked), stacked.data_ptr(), glob.data_ptr(),
+                      kpad, block, nblocks, k, t, tau, int(use_ov), decay,
+                      ctypes.byref(_cfg_struct(cfg)), scores.data_ptr(),
+                      e.data_ptr(), part.data_ptr(), _stream(dev))
+    _raise_on(lib, rc, "score_probs")
+    LAUNCHES["score_probs"] += 1
+    return scores, e, part
+
+
+# ---------------------------------------------------------------------------
+# K4: per-edge statistics, scores and softmax in one launch
+# ---------------------------------------------------------------------------
+
+
+def segment_probs_plain(stacked, sizes, *, seg: int, t: float, tau: float,
+                        use_ov: bool, decay: float, cfg: HeteRoScoreConfig):
+    """Plain version of K4 on an (E, seg) view. Returns ``(probs, scores)``,
+    each (E·seg,) f32 in the operand's edge-major layout, 0.0 in every
+    padding slot."""
+    dev = stacked.device
+    num_edges = stacked.shape[1] // seg
+    x = stacked.to(torch.float32).view(NROWS, num_edges, seg)
+    n = torch.clamp(sizes.to(torch.int64), 0, seg)
+    valid = torch.arange(seg, device=dev)[None, :] < n[:, None]
+    obs = valid & (x[ROW_HASL] > 0)
+    loss = x[ROW_LOSS]
+    nobs = obs.to(torch.float32).sum(1)
+    glob = torch.stack([
+        torch.where(obs, loss, BIG).amin(1),
+        torch.where(obs, loss, -BIG).amax(1),
+        torch.where(obs, x[ROW_SQ], 0.0).sum(1) / torch.clamp_min(nobs, 1.0),
+        torch.clamp_min(torch.where(valid, x[ROW_CNT], 0.0).amax(1), 1.0),
+    ])[:, :, None]
+    s = _block_scores_plain(x, glob, t=t, decay=decay, use_ov=use_ov, cfg=cfg)
+    tau_t = torch.tensor(tau, dtype=torch.float32, device=dev)
+    z = torch.where(valid, s / tau_t, -BIG)
+    e = torch.where(valid, torch.exp(z - z.amax(1, keepdim=True)), 0.0)
+    probs = e / torch.clamp_min(e.sum(1, keepdim=True), 1e-30)
+    return probs.reshape(-1), torch.where(valid, s, 0.0).reshape(-1)
+
+
+def segment_probs(stacked, sizes, *, seg: int, t: float, tau: float,
+                  use_ov: bool, decay: float, cfg: HeteRoScoreConfig):
+    """K4: per-edge probabilities and scores (see the plain version).
+    ``sizes`` is the (E,) int32 member count of each slice on the operand's
+    device; counts beyond ``seg`` are clamped to it. CPU tensors →
+    ``segment_probs_plain``; CUDA tensors → the sm_90a kernel."""
+    if seg < 1:
+        raise ValueError(f"seg must be ≥ 1, got {seg}")
+    num_edges = _check_stacked(stacked, seg)
+    if num_edges < 1:
+        raise ValueError("need at least one edge slice")
+    if sizes.dtype != torch.int32 or tuple(sizes.shape) != (num_edges,) \
+            or not sizes.is_contiguous() or sizes.device != stacked.device:
+        raise ValueError(f"sizes must be a contiguous int32 ({num_edges},) tensor "
+                         f"on {stacked.device}")
+    if stacked.device.type == "cpu":
+        return segment_probs_plain(stacked, sizes, seg=seg, t=t, tau=tau,
+                                   use_ov=use_ov, decay=decay, cfg=cfg)
+    _check_card(stacked.device)
+    lib = _library()
+    dev = stacked.device
+    kpad = stacked.shape[1]
+    probs = torch.empty(kpad, dtype=torch.float32, device=dev)
+    scores = torch.empty(kpad, dtype=torch.float32, device=dev)
+    rc = lib.hs_segment(_dtype_code(stacked), stacked.data_ptr(), sizes.data_ptr(),
+                        kpad, num_edges, seg, t, tau, int(use_ov), decay,
+                        ctypes.byref(_cfg_struct(cfg)), probs.data_ptr(),
+                        scores.data_ptr(), _stream(dev))
+    _raise_on(lib, rc, "segment_probs")
+    LAUNCHES["segment_probs"] += 1
+    return probs, scores
+
+
+# ---------------------------------------------------------------------------
+# The fused entry points
 # ---------------------------------------------------------------------------
 
 
@@ -329,33 +479,62 @@ def _normalize(e_flat: torch.Tensor, part: torch.Tensor, nblocks: int,
     return (e_flat.view(nblocks, block) * scale[:, None] / lglob).reshape(-1)
 
 
-def _fused(stats_fn: Callable, select_fn: Callable,
-           loss_prev, loss_prev2, label_js, part_count, last_selected,
-           update_sqnorm, has_loss, has_momentum, *, round_idx, tau, m: int,
-           gumbel: torch.Tensor, cfg: HeteRoScoreConfig,
-           staleness_override=None, block: Optional[int] = None):
-    k = loss_prev.shape[0]
+def _pass1(stats_fn: Callable, rows, *, round_idx, tau, cfg: HeteRoScoreConfig,
+           staleness_override, block: Optional[int]):
+    """Pack the rows and run K1: ``(stacked, glob, nblocks, kw)``, ``kw``
+    being the keyword arguments pass 2 (K2 or K3) takes."""
+    k = rows[0].shape[0]
+    blk, nblocks, kpad = _layout(k, block)
+    stacked = _pack(rows, staleness_override, k, kpad)
+    glob = _combine_stats(stats_fn(stacked, k=k, block=blk))
+    t, tau, decay = _scalars(round_idx, tau, cfg)
+    return stacked, glob, nblocks, dict(
+        k=k, block=blk, t=t, tau=tau, use_ov=staleness_override is not None,
+        decay=decay, cfg=cfg)
+
+
+def _fused_select(stats_fn: Callable, select_fn: Callable, *rows, round_idx, tau,
+                  m: int, gumbel: torch.Tensor, cfg: HeteRoScoreConfig,
+                  staleness_override=None, block: Optional[int] = None):
+    k = rows[0].shape[0]
     if not 1 <= m <= k:
         raise ValueError(f"m must be in [1, K={k}], got {m}")
-    blk, nblocks, kpad = _layout(k, block)
-    rows = (loss_prev, loss_prev2, label_js, part_count, last_selected,
-            update_sqnorm, has_loss, has_momentum)
-    stacked = _pack(rows, staleness_override, k, kpad)
-    stats = stats_fn(stacked, k=k, block=blk)
-    glob = _combine_stats(stats)
-    gpad = F.pad(gumbel.to(device=stacked.device, dtype=torch.float32), (0, kpad - k))
-    # round_idx and tau as exact f32 values, as the reference's scalar lanes.
-    t = float(torch.tensor(float(round_idx), dtype=torch.float32))
-    tau = float(torch.as_tensor(tau, dtype=torch.float32))
-    decay = float(diversity_decay(round_idx, cfg))
-    scores, e, part, cval, cidx = select_fn(
-        stacked, glob, gpad, k=k, block=blk, t=t, tau=tau,
-        use_ov=staleness_override is not None, decay=decay, cfg=cfg,
-        mb=min(m, blk))
+    stacked, glob, nblocks, kw = _pass1(
+        stats_fn, rows, round_idx=round_idx, tau=tau, cfg=cfg,
+        staleness_override=staleness_override, block=block)
+    blk = kw["block"]
+    gpad = F.pad(gumbel.to(device=stacked.device, dtype=torch.float32),
+                 (0, stacked.shape[1] - k))
+    scores, e, part, cval, cidx = select_fn(stacked, glob, gpad, mb=min(m, blk), **kw)
     probs = _normalize(e, part, nblocks, blk)[:k]
     pos = torch.topk(cval.reshape(-1), m).indices
     selected = cidx.reshape(-1)[pos]
     return selected, probs, scores[:k]
+
+
+def _fused_probs(stats_fn: Callable, probs_fn: Callable, *rows, round_idx, tau,
+                 cfg: HeteRoScoreConfig, staleness_override=None,
+                 block: Optional[int] = None):
+    k = rows[0].shape[0]
+    stacked, glob, nblocks, kw = _pass1(
+        stats_fn, rows, round_idx=round_idx, tau=tau, cfg=cfg,
+        staleness_override=staleness_override, block=block)
+    scores, e, part = probs_fn(stacked, glob, **kw)
+    return _normalize(e, part, nblocks, kw["block"])[:k], scores[:k]
+
+
+def _segmented(segment_fn: Callable, *rows, sizes, round_idx, tau,
+               cfg: HeteRoScoreConfig, seg: int, staleness_override=None):
+    num_edges = len(sizes)
+    k_total = num_edges * seg
+    if rows[0].shape[0] != k_total:
+        raise ValueError(f"edge-major operands must be (E*seg,) = ({k_total},), "
+                         f"got {tuple(rows[0].shape)}")
+    stacked = _pack(rows, staleness_override, k_total, k_total)
+    sizes_t = torch.as_tensor(sizes).to(device=stacked.device, dtype=torch.int32)
+    t, tau, decay = _scalars(round_idx, tau, cfg)
+    return segment_fn(stacked, sizes_t.contiguous(), seg=seg, t=t, tau=tau,
+                      use_ov=staleness_override is not None, decay=decay, cfg=cfg)
 
 
 def fused_score_select(*rows, round_idx, tau, m: int, gumbel: torch.Tensor,
@@ -368,9 +547,9 @@ def fused_score_select(*rows, round_idx, tau, m: int, gumbel: torch.Tensor,
     probs (K,), scores (K,))``; ``selected`` is a set (its order is not
     part of the contract).
     """
-    return _fused(score_stats, score_select, *rows, round_idx=round_idx,
-                  tau=tau, m=m, gumbel=gumbel, cfg=cfg,
-                  staleness_override=staleness_override, block=block)
+    return _fused_select(score_stats, score_select, *rows, round_idx=round_idx,
+                         tau=tau, m=m, gumbel=gumbel, cfg=cfg,
+                         staleness_override=staleness_override, block=block)
 
 
 def fused_score_select_plain(*rows, round_idx, tau, m: int, gumbel: torch.Tensor,
@@ -378,6 +557,49 @@ def fused_score_select_plain(*rows, round_idx, tau, m: int, gumbel: torch.Tensor
                              block: Optional[int] = None):
     """``fused_score_select`` through the plain versions of K1 and K2 on any
     device — what a kernel run is held against."""
-    return _fused(score_stats_plain, score_select_plain, *rows,
-                  round_idx=round_idx, tau=tau, m=m, gumbel=gumbel, cfg=cfg,
-                  staleness_override=staleness_override, block=block)
+    return _fused_select(score_stats_plain, score_select_plain, *rows,
+                         round_idx=round_idx, tau=tau, m=m, gumbel=gumbel, cfg=cfg,
+                         staleness_override=staleness_override, block=block)
+
+
+def fused_score_probs(*rows, round_idx, tau, cfg: HeteRoScoreConfig,
+                      staleness_override=None, block: Optional[int] = None):
+    """Fused scores + selection probabilities for K clients through K1 and K3.
+
+    Returns ``(probs (K,), scores (K,))``, both f32.
+    """
+    return _fused_probs(score_stats, score_probs, *rows, round_idx=round_idx,
+                        tau=tau, cfg=cfg, staleness_override=staleness_override,
+                        block=block)
+
+
+def fused_score_probs_plain(*rows, round_idx, tau, cfg: HeteRoScoreConfig,
+                            staleness_override=None, block: Optional[int] = None):
+    """``fused_score_probs`` through the plain versions of K1 and K3."""
+    return _fused_probs(score_stats_plain, score_probs_plain, *rows,
+                        round_idx=round_idx, tau=tau, cfg=cfg,
+                        staleness_override=staleness_override, block=block)
+
+
+def segmented_score_probs(*rows, sizes, round_idx, tau, cfg: HeteRoScoreConfig,
+                          seg: int, staleness_override=None):
+    """Per-edge fused scoring for E edge slices in one launch of K4.
+
+    ``rows`` are (E·seg,) edge-major: edge e's members occupy
+    ``[e·seg, e·seg + sizes[e])``, the rest of each slice is padding. ``seg``
+    may be any width ≥ the largest edge. Returns ``(probs, scores)`` in the
+    same layout, each edge's probabilities summing to 1 and every padding
+    slot 0.0.
+    """
+    return _segmented(segment_probs, *rows, sizes=sizes, round_idx=round_idx,
+                      tau=tau, cfg=cfg, seg=seg,
+                      staleness_override=staleness_override)
+
+
+def segmented_score_probs_plain(*rows, sizes, round_idx, tau,
+                                cfg: HeteRoScoreConfig, seg: int,
+                                staleness_override=None):
+    """``segmented_score_probs`` through the plain version of K4."""
+    return _segmented(segment_probs_plain, *rows, sizes=sizes, round_idx=round_idx,
+                      tau=tau, cfg=cfg, seg=seg,
+                      staleness_override=staleness_override)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (K1–K4) against their plain PyTorch versions, on
+the card.
 
 Every test here is marked ``cuda`` and skips when torch sees no device. The
 file imports neither JAX nor the reference package, so it also runs where
@@ -95,3 +96,52 @@ def test_cuda_wrapper_refuses_bad_operands(cuda_device):
         tss.score_select(stacked, torch.zeros(4, device=cuda_device),
                          torch.zeros(64), k=k, block=64, t=0.0, tau=1.0,
                          use_ov=False, decay=2.0, cfg=HeteRoScoreConfig(), mb=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("override", [False, True], ids=["counter", "override"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", [12, 4133, 70000])
+def test_cuda_score_probs_matches_plain(cuda_device, k, dtype, override):
+    """K1 + K3 against their plain versions."""
+    gen = torch.Generator(device=cuda_device).manual_seed(k)
+    rows = random_rows(k, dtype, gen, t=9)
+    stale = 30 * torch.rand(k, generator=gen, device=cuda_device) if override else None
+    kw = dict(round_idx=9, tau=dynamic_temperature(9, SelectorConfig()),
+              cfg=HeteRoScoreConfig(), staleness_override=stale)
+    before = dict(tss.LAUNCHES)
+    probs_k, scores_k = tss.fused_score_probs(*rows, **kw)
+    torch.cuda.synchronize()
+    assert tss.LAUNCHES["score_probs"] == before["score_probs"] + 1
+    assert tss.LAUNCHES["score_select"] == before["score_select"]
+    probs_p, scores_p = tss.fused_score_probs_plain(*rows, **kw)
+    torch.testing.assert_close(scores_k, scores_p, **TOL)
+    torch.testing.assert_close(probs_k, probs_p, rtol=1e-5, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("override", [False, True], ids=["counter", "override"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("sizes,seg", [([5, 128, 60], 128), ([4133], 4133),
+                                       ([32] * 32, 32), ([700, 2000, 1, 0], 2013)],
+                         ids=["ragged", "E1", "K1024", "odd-seg"])
+def test_cuda_segment_probs_matches_plain(cuda_device, sizes, seg, dtype, override):
+    """K4 against its plain version; padding slots are exactly 0.0."""
+    k = len(sizes) * seg
+    gen = torch.Generator(device=cuda_device).manual_seed(k + seg)
+    rows = random_rows(k, dtype, gen, t=9)
+    stale = 30 * torch.rand(k, generator=gen, device=cuda_device) if override else None
+    kw = dict(sizes=sizes, round_idx=9, tau=dynamic_temperature(9, SelectorConfig()),
+              cfg=HeteRoScoreConfig(), seg=seg, staleness_override=stale)
+    before = tss.LAUNCHES["segment_probs"]
+    probs_k, scores_k = tss.segmented_score_probs(*rows, **kw)
+    torch.cuda.synchronize()
+    assert tss.LAUNCHES["segment_probs"] == before + 1
+    probs_p, scores_p = tss.segmented_score_probs_plain(*rows, **kw)
+    torch.testing.assert_close(scores_k, scores_p, **TOL)
+    torch.testing.assert_close(probs_k, probs_p, rtol=1e-5, atol=1e-12)
+    for e, n in enumerate(sizes):
+        pad = slice(e * seg + n, (e + 1) * seg)
+        assert bool((probs_k[pad] == 0).all()) and bool((scores_k[pad] == 0).all())
+        if n:
+            assert float(probs_k[e * seg:e * seg + n].sum()) == pytest.approx(1.0, abs=1e-5)

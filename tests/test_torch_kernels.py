@@ -1,4 +1,4 @@
-"""K1 + K2 of the port (``repro_torch.kernels.score_select``) against the
+"""K1–K4 of the port (``repro_torch.kernels.score_select``) against the
 reference's Pallas kernels run in interpret mode on the same inputs and the
 same Gumbel noise.
 
@@ -182,6 +182,153 @@ def test_plain_versions_launch_nothing():
     tss.reset_launches()
     k = 12
     rows = torch_rows(make_rows(k, seed=4, t=2, dtype="f32"), "f32")
+    cfg = HeteRoScoreConfig()
     tss.fused_score_select(*rows, round_idx=2, tau=1.0, m=6,
-                           gumbel=torch.zeros(k), cfg=HeteRoScoreConfig())
-    assert tss.LAUNCHES == {"score_stats": 0, "score_select": 0}
+                           gumbel=torch.zeros(k), cfg=cfg)
+    tss.fused_score_probs(*rows, round_idx=2, tau=1.0, cfg=cfg)
+    tss.segmented_score_probs(*rows, sizes=[5, 7], round_idx=2, tau=1.0, cfg=cfg,
+                              seg=6)
+    assert tss.LAUNCHES == {"score_stats": 0, "score_select": 0,
+                            "score_probs": 0, "segment_probs": 0}
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("override", [False, True], ids=["counter", "override"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_score_probs_plain_matches_pallas_interpret(dtype, override):
+    """K3 over five 128-client blocks, so the normalizer merge runs."""
+    k, block, t = 515, 128, 9
+    rows = make_rows(k, seed=5, t=t, dtype=dtype)
+    stale = np.random.default_rng(6).uniform(0, 30, k).astype(np.float32) \
+        if override else None
+    assert tss._layout(k, block) == (128, 5, 640) == jss._layout(k, block)
+    tau_j = jax_tau(jnp.int32(t), JaxSelCfg())
+    probs_j, scores_j = jss.fused_score_probs(
+        *jax_rows(rows, dtype), round_idx=jnp.float32(t), tau=tau_j,
+        cfg=JaxScoreCfg(),
+        staleness_override=None if stale is None else jnp.asarray(stale),
+        interpret=True, block=block)
+    probs_t, scores_t = tss.fused_score_probs(
+        *torch_rows(rows, dtype), round_idx=t,
+        tau=dynamic_temperature(t, SelectorConfig()), cfg=HeteRoScoreConfig(),
+        staleness_override=None if stale is None else torch.from_numpy(stale),
+        block=block)
+    np.testing.assert_allclose(scores_t.numpy(), np.asarray(scores_j), **TOL)
+    np.testing.assert_allclose(probs_t.numpy(), np.asarray(probs_j), **TOL)
+    assert float(probs_t.sum()) == pytest.approx(1.0, abs=1e-5)
+
+
+def edge_major(sizes, seg: int) -> np.ndarray:
+    """(E·seg,) gather order: edge e's members in slots [e·seg, e·seg + n_e),
+    client 0 in every padding slot (as the reference engine lays it out)."""
+    perm = np.zeros(len(sizes) * seg, np.int64)
+    off = 0
+    for e, n in enumerate(sizes):
+        perm[e * seg:e * seg + n] = np.arange(off, off + n)
+        off += n
+    return perm
+
+
+@pytest.mark.parametrize("override", [False, True], ids=["counter", "override"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("seg", [128, 67], ids=["seg128", "seg67"])
+def test_segment_probs_plain_matches_pallas_interpret(seg, dtype, override):
+    """K4 on the reference's ragged case. The reference needs seg % 128 == 0;
+    the port takes any seg ≥ the largest edge, so seg = 67 is held slot by
+    slot against the reference's 128-wide layout."""
+    sizes = np.array([5, 67, 60], np.int32)
+    k, t = int(sizes.sum()), 6
+    rows = make_rows(k, seed=13, t=t, dtype=dtype)
+    stale = np.random.default_rng(14).uniform(0, 30, k).astype(np.float32) \
+        if override else None
+    perm_j, perm_t = edge_major(sizes, 128), edge_major(sizes, seg)
+    tau_j = jax_tau(jnp.int32(t), JaxSelCfg())
+    probs_j, scores_j = jss.segmented_score_probs(
+        *[r[perm_j] for r in jax_rows(rows, dtype)], sizes=jnp.asarray(sizes),
+        round_idx=jnp.float32(t), tau=tau_j, cfg=JaxScoreCfg(), seg=128,
+        staleness_override=None if stale is None else jnp.asarray(stale[perm_j]),
+        interpret=True)
+    probs_t, scores_t = tss.segmented_score_probs(
+        *[r[perm_t] for r in torch_rows(rows, dtype)], sizes=sizes, round_idx=t,
+        tau=dynamic_temperature(t, SelectorConfig()), cfg=HeteRoScoreConfig(),
+        seg=seg,
+        staleness_override=None if stale is None else torch.from_numpy(stale[perm_t]))
+    probs_j, scores_j = np.asarray(probs_j), np.asarray(scores_j)
+    probs_t, scores_t = probs_t.numpy(), scores_t.numpy()
+    assert probs_t.shape == scores_t.shape == (len(sizes) * seg,)
+    for e, n in enumerate(sizes):
+        mine, ref = slice(e * seg, e * seg + n), slice(e * 128, e * 128 + n)
+        np.testing.assert_allclose(probs_t[mine], probs_j[ref], **TOL)
+        np.testing.assert_allclose(scores_t[mine], scores_j[ref], **TOL)
+        assert float(probs_t[mine].sum()) == pytest.approx(1.0, abs=1e-5)
+        pad = slice(e * seg + n, (e + 1) * seg)
+        assert np.all(probs_t[pad] == 0.0) and np.all(scores_t[pad] == 0.0)
+        np.testing.assert_array_equal(probs_j[e * 128 + n:(e + 1) * 128], 0.0)
+
+
+def test_segment_probs_plain_equals_per_edge_probs():
+    """Each edge's slice of K4 is K3 run on that edge alone."""
+    sizes = [7, 40, 33]
+    k, t = sum(sizes), 4
+    rows = torch_rows(make_rows(k, seed=21, t=t, dtype="f32"), "f32")
+    cfg = HeteRoScoreConfig()
+    seg = 48
+    perm = torch.from_numpy(edge_major(sizes, seg))
+    probs, scores = tss.segmented_score_probs(
+        *[r[perm] for r in rows], sizes=sizes, round_idx=t, tau=0.9, cfg=cfg, seg=seg)
+    off = 0
+    for e, n in enumerate(sizes):
+        p_e, s_e = tss.fused_score_probs(*[r[off:off + n] for r in rows],
+                                         round_idx=t, tau=0.9, cfg=cfg)
+        torch.testing.assert_close(probs[e * seg:e * seg + n], p_e, rtol=1e-6, atol=1e-7)
+        torch.testing.assert_close(scores[e * seg:e * seg + n], s_e, rtol=1e-6, atol=1e-6)
+        off += n
+
+
+def test_ops_wrappers_take_a_client_state():
+    """``ops.heterosel_probs`` and ``ops.heterosel_probs_segmented`` hand a
+    ``ClientState``'s rows, in ``score_inputs`` order, to K3 and K4."""
+    from repro_torch.core.state import ClientState
+    from repro_torch.kernels import ops
+
+    sizes, seg, t = [7, 40, 33], 48, 4
+    rows = torch_rows(make_rows(sum(sizes), seed=22, t=t, dtype="f32"), "f32")
+    cfg = HeteRoScoreConfig()
+    perm = torch.from_numpy(edge_major(sizes, seg))
+    state = ClientState(*rows)
+    probs, scores = ops.heterosel_probs(state, t, 0.9, cfg)
+    want = tss.fused_score_probs_plain(*rows, round_idx=t, tau=0.9, cfg=cfg)
+    torch.testing.assert_close((probs, scores), want, rtol=0, atol=0)
+    probs, scores = ops.heterosel_probs_segmented(
+        state.map(lambda x: x[perm]), sizes, round_idx=t, tau=0.9, cfg=cfg, seg=seg)
+    want = tss.segmented_score_probs_plain(*[r[perm] for r in rows], sizes=sizes,
+                                           round_idx=t, tau=0.9, cfg=cfg, seg=seg)
+    torch.testing.assert_close((probs, scores), want, rtol=0, atol=0)
+
+
+def test_k3_k4_wrappers_check_their_operands():
+    k, blk = 40, 64
+    rows = torch_rows(make_rows(k, seed=2, t=3, dtype="f32"), "f32")
+    stacked = tss._pack(rows, None, k, blk)
+    glob = tss._combine_stats(tss.score_stats(stacked, k=k, block=blk))
+    kw = dict(t=3.0, tau=1.0, use_ov=False, decay=2.0, cfg=HeteRoScoreConfig())
+    with pytest.raises(ValueError):
+        tss.score_probs(stacked, glob.double(), k=k, block=blk, **kw)
+    with pytest.raises(ValueError):
+        tss.score_probs(stacked[:, :48], glob, k=k, block=blk, **kw)
+    sizes = torch.tensor([20, 20], dtype=torch.int32)
+    with pytest.raises(ValueError):  # 64 columns are not whole 48-wide slices
+        tss.segment_probs(stacked, sizes, seg=48, **kw)
+    with pytest.raises(ValueError):
+        tss.segment_probs(stacked, sizes.long(), seg=32, **kw)
+    with pytest.raises(ValueError):
+        tss.segment_probs(stacked, sizes[:1], seg=32, **kw)
+    with pytest.raises(ValueError):
+        tss.segment_probs(stacked, sizes, seg=0, **kw)
+    with pytest.raises(ValueError, match="edge-major"):
+        tss.segmented_score_probs(*rows, sizes=[20, 20], round_idx=3, tau=1.0,
+                                  cfg=HeteRoScoreConfig(), seg=32)

@@ -181,9 +181,10 @@ def test_engine_refuses_what_is_not_ported():
     _, tm = models()
     fed = FedConfig(num_clients=4, rounds=1)
     data = make_vision_data(fed, train_per_class=4, test_per_class=2, image_size=8)
-    for kw in (dict(round_policy="async"), dict(topology="hierarchical")):
+    hier = dataclasses.replace(fed, topology="hierarchical", edge_count=2)
+    for f in (fed, hier):  # async rounds, flat or hierarchical
         with pytest.raises(NotImplementedError, match="not ported"):
-            FederatedSpec(tm, fed, data, device="cpu", **kw).build()
+            FederatedSpec(tm, f, data, device="cpu", round_policy="async").build()
     with pytest.raises(ValueError, match="not ported"):
         FederatedSpec(tm, fed, data, device="cpu", aggregator="fedavgm").build()
 
