@@ -6,15 +6,23 @@
 Phases, in order; any failure raises and the script exits nonzero:
 
   1. Device and build: the card's name and power limit (nvidia-smi), then
-     the sm_90a build of the fused HeteRo-Select kernels K1–K4 from
-     src/repro_torch/kernels/csrc/, with its ptxas report.
+     the sm_90a builds, from src/repro_torch/kernels/csrc/, of the fused
+     HeteRo-Select kernels K1–K4 (score_select.cu) and the flash-attention
+     kernel K5 (flash_attention.cu), one nvcc each, started together, with
+     their ptxas reports.
   2. Kernels against their plain PyTorch versions on the card, f32 and bf16
      state, staleness override off and on: K1 + K2 for K ∈ {12, 4133, 2^20}
      and m ∈ {6, 64, 1024} (m ≤ K), selected sets equal; K3 for the same K;
      K4 for the edge layouts in K4_CASES, padding slots exactly 0.0. Scores
-     and probabilities must agree to 1e-5 relative. Then each kernel and its
-     plain version are timed: CUDA events around back-to-back calls (what a
-     caller waits, host dispatch included) and torch.profiler's device time.
+     and probabilities must agree to 1e-5 relative. K5 for the cases in
+     FLASH_CASES (f32 and bf16, causal and not, window 256, GQA 14/2 and
+     MHA at D = 64, S = T ∈ {32, 1000, 4096}, D = 256): f32 outputs to 1e-5
+     relative (1e-6 absolute), bf16 outputs within one bf16 ulp of the plain
+     version's plus 1e-6, the log-sum-exp to 1e-5. Then each kernel and its plain version are timed:
+     CUDA events around back-to-back calls (what a caller waits, host
+     dispatch included) and torch.profiler's device time; K5 also beside
+     torch's scaled_dot_product_attention on the same inputs (a yardstick
+     only: the port never calls it).
   3. The flat main path at full width: Algorithm 1 sync/flat with
      selector="heterosel_pallas" on ResNet-18 (d_model 64, 32×32×3, 10
      classes), K = 12, m = 6, 3 rounds of 4 local steps, batched executor.
@@ -28,7 +36,16 @@ Phases, in order; any failure raises and the script exits nonzero:
      version gives on the same edge-major state (the engine's own
      ``select_round`` with the plain scorer), upload 3 edge aggregates,
      select 9 clients, and select the plain versions' cohort.
-  5. A JSON line of per-kernel numbers, then the result line.
+  5. The federated LM path at full width: examples/federated_llm.py's setup
+     (K = 8, m = 4, 1 local epoch of 3 steps, batch 8, lr 0.05, μ 0.1,
+     make_lm_data(seq_len=32)) on qwen2-0.5b with all 24 layers (494 M
+     params, bf16), 3 rounds, heterosel_pallas, batched executor. Each round
+     must launch K1 and K2 once and K5 24 × (3 + 1) = 96 times (one launch
+     per layer per local step for the whole vmapped cohort, none in the
+     backward, one per layer in the eval), and select the plain versions'
+     cohort. Then one eval forward through K5 is held against the same
+     forward through K5's plain version.
+  6. A JSON line of per-kernel numbers, then the result line.
 
 It needs one card, imports nothing of JAX or of the reference package, and
 exits nonzero without printing a result when torch sees no CUDA device.
@@ -41,6 +58,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -62,6 +80,24 @@ K4_CASES = (("K=24 E=4", [6] * 4, 32),
             ("K=2^20 E=32", [32768] * 32, 32768))
 K4_TIMED = (("K=24 E=4", [6] * 4, 32), ("K=2^20 E=1024", [1024] * 1024, 1024))
 RTOL = 1e-5
+# K5 cases: (name, B, S, T, H, KVH, D, causal, window). "path" is the LM
+# phase's shape: a cohort of 4 clients × batch 8 (or 32 eval sequences) of 32
+# tokens, qwen2-0.5b's 14 query and 2 KV heads of 64.
+FLASH_CASES = (("path", 32, 32, 32, 14, 2, 64, True, 0),
+               ("path non-causal", 32, 32, 32, 14, 2, 64, False, 0),
+               ("T=1000", 1, 1000, 1000, 14, 2, 64, True, 0),
+               ("T=1000 non-causal", 1, 1000, 1000, 14, 2, 64, False, 0),
+               ("T=1000 window 256", 1, 1000, 1000, 14, 2, 64, True, 256),
+               ("prefill 4096", 1, 4096, 4096, 14, 2, 64, True, 0),
+               ("MHA T=1000", 2, 1000, 1000, 14, 14, 64, True, 0),
+               ("D=256", 1, 300, 300, 4, 2, 256, True, 0))
+FLASH_TIMED = ("path", "prefill 4096")
+# Dense peaks of one H100 SXM (NVIDIA data sheet): bf16 inputs on the tensor
+# cores, which accumulate in f32, so K5's f32 state does not force the CUDA
+# cores; f32 inputs have no tensor-core path with TF32 off.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+LM_ROUNDS = 3
+LM_STEPS = 3
 
 
 def nvidia_smi() -> str:
@@ -341,6 +377,113 @@ def check_probs_kernels(dev, err: dict, t: int, tau, cfg) -> None:
           f"K4 {err['segment_probs']:.3e}", flush=True)
 
 
+def flash_inputs(case, dtype, dev, seed=0):
+    import torch
+
+    _, b, s, t, h, kvh, d = case[:7]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((b, s, h, d), (b, t, kvh, d), (b, t, kvh, d))]
+
+
+def bf16_ulp(x):
+    """Spacing of bf16 at |x| (8 significant bits)."""
+    import torch
+
+    e = torch.floor(torch.log2(torch.clamp_min(x.abs().float(), 2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def check_within_bf16_ulp(name: str, got, want, atol: float = 1e-6) -> float:
+    """Raise unless every bf16 entry of ``got`` is within one bf16 ulp of
+    ``want`` plus ``atol``; return the largest absolute error. The ``atol``
+    is the f32 error before the cast: where p·v cancels to near 0, two f32
+    sum orders differ by more than one bf16 ulp of the result (up to ~5e-7
+    against f64 at these shapes)."""
+    gap = (got.float() - want.float()).abs()
+    if not bool((gap <= bf16_ulp(want) + atol).all()):
+        raise AssertionError(f"{name}: {float(gap.max()):.3e} exceeds one bf16 ulp "
+                             f"+ {atol}")
+    return float(gap.max())
+
+
+def flash_work(case, itemsize: int):
+    """(bytes, flops) K5 must spend on a case: q, k, v read once, o and the
+    f32 log-sum-exp written once; 4·D flops (q·k and p·v) per unmasked
+    (query, key) pair of each (batch, head)."""
+    _, b, s, t, h, kvh, d, causal, window = case
+    qp = np.arange(s)
+    hi = np.minimum(qp, t - 1) if causal else np.full(s, t - 1)
+    lo = np.maximum(qp - window + 1, 0) if window else np.zeros(s, np.int64)
+    pairs = int(np.clip(hi - lo + 1, 0, None).sum())
+    nbytes = (2 * b * s * h * d + 2 * b * t * kvh * d) * itemsize + b * h * s * 4
+    return nbytes, 4 * d * pairs * b * h
+
+
+def sdpa(q, k, v, causal: bool):
+    """torch's fused attention on K5's inputs: the yardstick, never on the
+    port's path."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal, enable_gqa=k.shape[2] != q.shape[2]).transpose(1, 2)
+
+
+def phase_flash(dev):
+    """Phase 2, K5: every case against the plain version, then the timings."""
+    import torch
+    from repro_torch.kernels import flash_attention as tfa
+
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    for case in FLASH_CASES:
+        name, causal, window = case[0], case[7], case[8]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(case, dtype, dev)
+            o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+            o_p, lse_p = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+            where = f"K5 {name} {dtype}"
+            key = str(dtype).split(".")[-1]
+            if dtype == torch.bfloat16:
+                e = check_within_bf16_ulp(f"{where} o", o, o_p)
+            else:
+                e = check_close(f"{where} o", o, o_p, atol=1e-6)
+            check_close(f"{where} lse", lse, lse_p, atol=1e-5)
+            err[key] = max(err[key], e)
+    torch.cuda.synchronize()
+    print(f"phase 2: {2 * len(FLASH_CASES)} K5 cases, kernel == plain (f32 rtol {RTOL}, "
+          f"bf16 within 1 ulp + 1e-6); max abs err f32 {err['float32']:.3e}, bf16 "
+          f"{err['bfloat16']:.3e}", flush=True)
+
+    timings = []
+    for case in (c for c in FLASH_CASES if c[0] in FLASH_TIMED):
+        name, causal, window = case[0], case[7], case[8]
+        small = case[2] <= 64
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = flash_inputs(case, dtype, dev, seed=1)
+            key = str(dtype).split(".")[-1]
+            row = {"case": name, "dtype": key, "B": case[1], "S": case[2], "T": case[3],
+                   "H": case[4], "KVH": case[5], "D": case[6], "causal": causal}
+            kern = lambda: tfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+            plain = lambda: tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+            row["k5_ms"] = time_ms(kern, 200 if small else 20)
+            row["k5_plain_ms"] = time_ms(plain, 50 if small else 3)
+            row["k5_device_ms"] = device_ms(kern, "flash_fwd_kernel")
+            row["k5_plain_device_ms"] = device_ms(plain, None, iters=5)
+            lib = lambda: sdpa(q, k, v, causal)
+            row["sdpa_max_abs_diff"] = float((lib().float() - kern()[0].float()).abs().max())
+            row["k5_library_ms"] = time_ms(lib, 200 if small else 20)
+            row["k5_library_device_ms"] = device_ms(lib, None)
+            nbytes, flops = flash_work(case, q.element_size())
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS[key] * 1e3
+            row.update(bytes=nbytes, flops=flops, k5_bound_ms=max(t_bytes, t_ops),
+                       k5_bound_by="bytes" if t_bytes >= t_ops else "operations")
+            timings.append(row)
+            print("timing " + json.dumps(row), flush=True)
+    return err, timings
+
+
 def phase_main_path(dev):
     """Phase 3: Algorithm 1 on full-width ResNet-18 through the kernels."""
     import torch
@@ -351,6 +494,7 @@ def phase_main_path(dev):
     from repro_torch.core.state import score_inputs
     from repro_torch.data import make_vision_data
     from repro_torch.fed import RoundHook, run_federated
+    from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import score_select as tss
     from repro_torch.models import build_model
 
@@ -399,16 +543,17 @@ def phase_main_path(dev):
 
     torch.cuda.reset_peak_memory_stats(dev)
     tss.reset_launches()
+    tfa.reset_launches()
     t0 = time.perf_counter()
     res = run_federated(model, fed, data, selector="heterosel_pallas",
                         steps_per_round=4, client_execution="batched",
                         device=dev, noise=noise, hooks=[CheckRound()])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(tss.LAUNCHES)
+    launches = {**tss.LAUNCHES, **tfa.LAUNCHES}
 
     if launches != {"score_stats": fed.rounds, "score_select": fed.rounds,
-                    "score_probs": 0, "segment_probs": 0}:
+                    "score_probs": 0, "segment_probs": 0, "flash_attention": 0}:
         raise AssertionError(f"main path launches {launches}, want {fed.rounds} "
                              "of K1 and K2")
     if not np.all(np.isfinite(res.train_loss)):
@@ -442,6 +587,7 @@ def phase_hierarchy(dev, err: dict):
     from repro_torch.core.selection import gumbel_noise
     from repro_torch.data import make_vision_data
     from repro_torch.fed import HierarchyConfig, RoundHook, run_federated
+    from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import score_select as tss
     from repro_torch.models import build_model
 
@@ -509,16 +655,17 @@ def phase_hierarchy(dev, err: dict):
     check = CheckRound()
     torch.cuda.reset_peak_memory_stats(dev)
     tss.reset_launches()
+    tfa.reset_launches()
     t0 = time.perf_counter()
     res = run_federated(model, fed, data, selector="heterosel_pallas",
                         steps_per_round=4, client_execution="batched", device=dev,
                         hier_cfg=hcfg, edge_noise=edge_noise, hooks=[check])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(tss.LAUNCHES)
+    launches = {**tss.LAUNCHES, **tfa.LAUNCHES}
 
     if launches != {"score_stats": 0, "score_select": 0, "score_probs": 0,
-                    "segment_probs": fed.rounds}:
+                    "segment_probs": fed.rounds, "flash_attention": 0}:
         raise AssertionError(f"hierarchical path launches {launches}, want "
                              f"{fed.rounds} of K4 and nothing else")
     if not np.all(np.isfinite(res.train_loss)):
@@ -548,6 +695,197 @@ def phase_hierarchy(dev, err: dict):
     return launches
 
 
+class plain_attention:
+    """Within this block K5's autograd.Function takes its plain version on
+    the card too: for holding a forward through the kernel against the same
+    forward without it. The port's own path never does this."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as tfa
+
+        self.saved = tfa.flash_attention_fwd
+        tfa.flash_attention_fwd = tfa.flash_attention_plain
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import flash_attention as tfa
+
+        tfa.flash_attention_fwd = self.saved
+        return False
+
+
+def phase_lm(dev):
+    """Phase 5: the federated LM path on full-width qwen2-0.5b through K1, K2
+    and K5; returns the path's launch counts and K5's largest logit gap."""
+    import torch
+    from repro_torch.configs import FedConfig, get_config
+    from repro_torch.core.scoring import HeteRoScoreConfig
+    from repro_torch.core.selection import (SelectorConfig, dynamic_temperature,
+                                            gumbel_noise)
+    from repro_torch.core.state import score_inputs
+    from repro_torch.data import make_lm_data
+    from repro_torch.fed import FederatedSpec, RoundHook
+    from repro_torch.fed.engine import default_eval
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import score_select as tss
+    from repro_torch.models import build_model
+
+    cfg = get_config("qwen2-0.5b")
+    fed = FedConfig(num_clients=8, participation=0.5, rounds=LM_ROUNDS, local_epochs=1,
+                    local_batch=8, lr=0.05, mu=0.1, seed=0)
+    m = fed.num_selected
+    data = make_lm_data(fed, vocab=cfg.vocab_size, seq_len=32)
+    model = build_model(cfg)
+    n_params = sum(math.prod(p.shape) for p in model.module.parameters())
+    # The design's count: one K5 launch per layer per local step for the whole
+    # vmapped cohort (the vmap rule folds the clients into the batch), none in
+    # the backward (plain PyTorch), and one per layer in the eval forward.
+    k5_per_round = cfg.num_layers * (LM_STEPS + 1)
+    want_round = {"score_stats": 1, "score_select": 1, "score_probs": 0,
+                  "segment_probs": 0, "flash_attention": k5_per_round}
+    print(f"phase 5: qwen2-0.5b, {n_params} params, predicted K5 launches per round "
+          f"{cfg.num_layers} x ({LM_STEPS} + 1) = {k5_per_round}", flush=True)
+
+    noise_gen = torch.Generator(device=dev).manual_seed(fed.seed)
+    drawn = {}
+
+    def noise(t, k):
+        if t not in drawn:
+            drawn[t] = gumbel_noise(noise_gen, k)
+        return drawn[t]
+
+    def counts():
+        return {**tss.LAUNCHES, **tfa.LAUNCHES}
+
+    class CheckRound(RoundHook):
+        """Per round: the cohort equals the plain versions' selection on the
+        same state and noise; K1 and K2 launched once, K5 k5_per_round times."""
+
+        def on_round_start(self, ctx):
+            t, eng = ctx.round_idx, ctx.engine
+            sel, _, _ = tss.fused_score_select_plain(
+                *score_inputs(eng.state), round_idx=t,
+                tau=dynamic_temperature(t, SelectorConfig(num_selected=m)),
+                m=m, gumbel=eng.round_noise(t), cfg=HeteRoScoreConfig())
+            self.expected = np.zeros(fed.num_clients, bool)
+            self.expected[sel.cpu().numpy()] = True
+            self.before = counts()
+
+        def on_round_end(self, ctx):
+            now = counts()
+            grew = {n: now[n] - self.before[n] for n in now}
+            if grew != want_round:
+                raise AssertionError(f"round {ctx.round_idx}: launches {grew}, "
+                                     f"want {want_round}")
+            if not np.array_equal(ctx.mask, self.expected):
+                raise AssertionError(
+                    f"round {ctx.round_idx}: cohort {np.flatnonzero(ctx.mask)} != "
+                    f"plain selection {np.flatnonzero(self.expected)}")
+            print(f"round {ctx.round_idx}: cohort {np.flatnonzero(ctx.mask).tolist()} "
+                  f"== plain; launches {json.dumps(grew)}; train_loss "
+                  f"{ctx.train_loss:.6f} {ctx.engine.metric_name} {ctx.metric:.6e}",
+                  flush=True)
+
+    engine = FederatedSpec(model, fed, data, selector="heterosel_pallas",
+                           steps_per_round=LM_STEPS, executor="batched", device=dev,
+                           noise=noise, hooks=[CheckRound()]).build()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tss.reset_launches()
+    tfa.reset_launches()
+    t0 = time.perf_counter()
+    res = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    want = {n: c * fed.rounds for n, c in want_round.items()}
+    if launches != want:
+        raise AssertionError(f"LM path launches {launches}, want {want}")
+    if not np.all(np.isfinite(res.train_loss)):
+        raise AssertionError(f"non-finite train loss {res.train_loss}")
+    if res.metric_name != "exp(-loss)" or not np.all((res.accuracy > 0) & (res.accuracy <= 1)):
+        raise AssertionError(f"bad eval {res.metric_name} {res.accuracy}")
+    for name, p in res.params.items():
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"non-finite parameter {name}")
+    if res.selected_history.shape != (fed.rounds, fed.num_clients) \
+            or not np.all(res.selected_history.sum(1) == m):
+        raise AssertionError(f"bad selection history {res.selected_history}")
+
+    # One eval forward through K5 against the same forward through K5's plain
+    # version, on the trained params. Tolerance: 4 bf16 ulp of the largest
+    # logit, and the loss to 1e-3 relative. 24 bf16 layers carry a 1-ulp
+    # difference of an attention output onward (on the CPU, reordering the
+    # plain version's sums moved logits of this width by 1.3 ulp).
+    batch = {k: v.to(dev) for k, v in data.eval_batch().items()}
+    with torch.no_grad():
+        logits_k = model.forward(res.params, batch)[..., :cfg.vocab_size].float()
+        loss_k = float(model.loss(res.params, batch))
+        with plain_attention():
+            logits_p = model.forward(res.params, batch)[..., :cfg.vocab_size].float()
+            loss_p = float(model.loss(res.params, batch))
+    gap = float((logits_k - logits_p).abs().max())
+    top = float(bf16_ulp(logits_p.abs().max()))
+    if not gap <= 4 * top or abs(loss_k - loss_p) > 1e-3 * abs(loss_p):
+        raise AssertionError(f"eval logits through K5 vs plain: max gap {gap:.3e} "
+                             f"(bf16 ulp of the top logit {top:.3e}), loss "
+                             f"{loss_k} vs {loss_p}")
+    print(f"phase 5: K=8 m={m}, {fed.rounds} rounds x {LM_STEPS} steps x batch "
+          f"{fed.local_batch} x seq 32, wall {wall:.2f} s", flush=True)
+    for t in range(fed.rounds):
+        print(f"  round {t}: select_ms {res.select_ms[t]:.3f}  execute_ms "
+              f"{res.execute_ms[t]:.3f}  aggregate_ms {res.aggregate_ms[t]:.3f}  "
+              f"eval_ms {res.eval_ms[t]:.3f}  exp(-loss) {res.accuracy[t]:.6e}", flush=True)
+    print(f"  eval logits K5 vs plain: max abs gap {gap:.4e} ({gap / top:.2f} bf16 ulp "
+          f"of the top logit), loss {loss_k:.6f} vs {loss_p:.6f}", flush=True)
+    print(f"  labeled_summary {json.dumps(res.labeled_summary())}", flush=True)
+    print(f"  train_loss {res.train_loss.tolist()}", flush=True)
+    print(f"  params {n_params}  max_memory_allocated {peak} bytes", flush=True)
+    print(f"  launches {json.dumps(launches)}", flush=True)
+
+    # Where the time of the two big phases goes, outside the counted run:
+    # one more cohort call (the last round's cohort, on the trained params)
+    # and one more eval, each under torch.profiler. Busy = the sum of the
+    # CUDA kernels' device time; idle share = 1 - busy / host wall time.
+    cohort = np.flatnonzero(res.selected_history[-1])
+    for what, fn in (
+            ("execute", lambda: engine.executor.run_round(
+                engine.params, cohort, np.random.default_rng(fed.seed))),
+            ("eval", lambda: default_eval(model, engine.params, batch))):
+        print(f"  profile {what}: " + json.dumps(profile_phase(fn)), flush=True)
+    return launches, gap
+
+
+def profile_phase(fn, top: int = 10) -> dict:
+    """Host wall time of ``fn`` under torch.profiler, the device time its
+    CUDA kernels took, the idle share, and the operators whose kernels took
+    the most device time ([name, calls, device ms])."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # Kernel events carry the device time; CPU operator events carry the
+    # same time again (that of the kernels they launched), so count once.
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    ops = sorted((e for e in events if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall if wall else None,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_ops": [[e.key[:40], e.count, e.self_device_time_total / 1e3]
+                        for e in ops[:top]]}
+
+
 def main() -> int:
     import torch
 
@@ -565,14 +903,19 @@ def main() -> int:
           f"capability {torch.cuda.get_device_capability(0)}", flush=True)
 
     t0 = time.perf_counter()
-    built = _build.build("score_select")
-    print(f"phase 1: built {built.path.name} in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {built.seconds:.2f} s)", flush=True)
-    print(built.log.strip(), flush=True)
+    sources = ("score_select", "flash_attention")
+    with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc each, together
+        builds = list(pool.map(_build.build, sources))
+    for built in builds:
+        print(f"phase 1: built {built.path.name} (nvcc {built.seconds:.2f} s)", flush=True)
+        print(built.log.strip(), flush=True)
+    print(f"phase 1: {len(builds)} libraries in {time.perf_counter() - t0:.2f} s", flush=True)
 
     err, timings = phase_kernels(dev)
+    flash_err, flash_timings = phase_flash(dev)
     flat = phase_main_path(dev)
     hier = phase_hierarchy(dev, err)
+    lm, lm_gap = phase_lm(dev)
 
     src = "src/repro_torch/kernels/csrc/score_select.cu"
     kernels = []
@@ -589,8 +932,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": f"src/repro/kernels/score_select.py:{line}",
-            "launches": flat[name] + hier[name],
-            "launches_by_path": {"flat": flat[name], "hierarchical": hier[name]},
+            "launches": flat[name] + hier[name] + lm[name],
+            "launches_by_path": {"flat": flat[name], "hierarchical": hier[name],
+                                 "lm": lm[name]},
             "max_abs_err": err[name],
             "ms": main_row[f"{key}_ms"], "plain_ms": main_row[f"{key}_plain_ms"],
             "bound_ms": main_row[f"{key}_bound_ms"], "bound_by": "bytes",
@@ -601,6 +945,25 @@ def main() -> int:
                           "plain_device_ms": r[f"{key}_plain_device_ms"],
                           "bound_ms": r[f"{key}_bound_ms"]} for r in rows],
         })
+    main_row = next(r for r in flash_timings
+                    if r["case"] == "path" and r["dtype"] == "bfloat16")
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:31",
+        "launches": flat["flash_attention"] + hier["flash_attention"]
+        + lm["flash_attention"],
+        "launches_by_path": {"flat": flat["flash_attention"],
+                             "hierarchical": hier["flash_attention"],
+                             "lm": lm["flash_attention"]},
+        "max_abs_err": max(flash_err.values()),
+        "max_abs_err_by_dtype": flash_err,
+        "lm_eval_logit_gap": lm_gap,
+        "ms": main_row["k5_ms"], "plain_ms": main_row["k5_plain_ms"],
+        "bound_ms": main_row["k5_bound_ms"], "bound_by": main_row["k5_bound_by"],
+        "library_ms": main_row["k5_library_ms"],   # scaled_dot_product_attention
+        "shapes": flash_timings,
+    })
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,16 @@
 """Config dataclasses: model architecture and federated setup.
 
 Plain frozen dataclasses, as in ``repro.configs.base``. Only the fields the
-resnet family and the sync engines (flat and hierarchical) read are carried
-over.
+ported families (resnet, dense) and the sync engines (flat and hierarchical)
+read are carried over.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+
+VOCAB_PAD = 256  # the vocab is padded to a multiple of this, as in the reference
 
 
 @dataclasses.dataclass(frozen=True)
@@ -18,10 +21,29 @@ class ModelConfig:
     family: str
     num_layers: int
     d_model: int
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
     citation: str = ""
+    # attention details
+    head_dim: int = 0                 # 0 ⇒ d_model // num_heads
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    sliding_window: int = 0           # 0 ⇒ full attention
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
     # vision classification (resnet)
     image_size: int = 32
     num_classes: int = 10
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // max(self.num_heads, 1))
+
+    @property
+    def padded_vocab(self) -> int:
+        return int(math.ceil(self.vocab_size / VOCAB_PAD) * VOCAB_PAD)
 
 
 @dataclasses.dataclass(frozen=True)

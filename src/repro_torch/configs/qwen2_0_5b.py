@@ -1,0 +1,10 @@
+"""Qwen2-0.5B — dense GQA with QKV bias, tied embeddings [arXiv:2407.10671]."""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-0.5b", family="dense", num_layers=24, d_model=896,
+    num_heads=14, num_kv_heads=2, d_ff=4864, vocab_size=151936,
+    head_dim=64, qkv_bias=True, rope_theta=1e6, tie_embeddings=True,
+    citation="arXiv:2407.10671 (Qwen2 Technical Report)",
+)

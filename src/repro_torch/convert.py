@@ -1,9 +1,14 @@
 """Carry weights between the JAX reference's params pytree and the port.
 
-The reference keeps ResNet params as a nested dict of arrays with HWIO
-conv kernels; the port keeps a flat dict keyed by dotted paths of the same
-names (``stem``, ``gn_stem.scale``, ``block3.conv1``, …, ``fc_w``,
-``fc_b``) with OIHW conv weights. Both directions copy values bitwise.
+The reference keeps params as a nested dict of arrays; the port keeps a
+flat dict keyed by dotted paths of the same names (``stem``,
+``block3.conv1``, …, ``fc_w`` for the resnet; ``embed.tok_embed``,
+``layers.attn.wq``, …, ``final_norm`` for the dense decoder). The resnet's
+conv kernels, and only they, change layout: HWIO there, OIHW here. Every
+other leaf, the dense family's stacked 4-D attention weights included, is
+carried as it is. Both directions copy values bitwise; bf16 leaves travel
+as their 16-bit patterns (numpy's bf16 is ``ml_dtypes.bfloat16``, imported
+only when such a leaf goes back to the reference layout).
 """
 
 from __future__ import annotations
@@ -15,6 +20,12 @@ import torch
 
 _HWIO_TO_OIHW = (3, 2, 0, 1)
 _OIHW_TO_HWIO = (2, 3, 1, 0)
+# Leaf names of the resnet's conv kernels (models/resnet.py).
+_CONV_LEAVES = frozenset({"stem", "conv1", "conv2", "proj"})
+
+
+def _is_conv(name: str) -> bool:
+    return name.rsplit(".", 1)[-1] in _CONV_LEAVES
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = ""):
@@ -31,9 +42,13 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Nested dict of numpy arrays (reference layout) → flat torch dict."""
     out = {}
     for name, a in _flatten(tree):
-        if a.ndim == 4:
+        if _is_conv(name):
             a = a.transpose(_HWIO_TO_OIHW)
-        out[name] = torch.from_numpy(np.ascontiguousarray(a))
+        a = np.array(a, order="C")  # a writable copy
+        if a.dtype.name == "bfloat16":
+            out[name] = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+        else:
+            out[name] = torch.from_numpy(a)
     return out
 
 
@@ -41,8 +56,14 @@ def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """Flat torch dict → nested dict of numpy arrays in the reference layout."""
     tree: Dict[str, Any] = {}
     for name, t in params.items():
-        a = t.detach().cpu().numpy()
-        if a.ndim == 4:
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+
+            a = t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+        else:
+            a = t.numpy()
+        if _is_conv(name):
             a = np.ascontiguousarray(a.transpose(_OIHW_TO_HWIO))
         node = tree
         *parents, leaf = name.split(".")

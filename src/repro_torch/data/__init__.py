@@ -1,5 +1,6 @@
-"""Data: synthetic federated datasets."""
+"""Data: synthetic federated datasets (vision and language modelling)."""
 
-from repro_torch.data.synthetic import VisionFedData, make_vision_data
+from repro_torch.data.synthetic import (LMFedData, VisionFedData, make_lm_data,
+                                        make_vision_data)
 
-__all__ = ["VisionFedData", "make_vision_data"]
+__all__ = ["LMFedData", "VisionFedData", "make_lm_data", "make_vision_data"]

@@ -1,9 +1,10 @@
-"""Synthetic federated vision data (CIFAR-10 stand-in), as in
-``repro.data.synthetic``.
+"""Synthetic federated data, as in ``repro.data.synthetic``: vision (a
+CIFAR-10 stand-in) and language modelling (per-client bigram "dialects").
 
-Everything is generated in numpy from the seed, so images, labels and client
-index lists are bitwise equal to the reference's. Batches become torch
-tensors (on the CPU) at the boundary; the executor moves them to its device.
+Everything is generated in numpy from the seed, so images, labels, client
+index lists and token streams are bitwise equal to the reference's. Batches
+become torch tensors (on the CPU) at the boundary; the executor moves them
+to its device.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig
-from repro_torch.fed.partition import client_label_js, dirichlet_partition
+from repro_torch.fed.partition import (client_label_js, dirichlet_partition,
+                                       js_divergence)
 
 
 def _class_templates(rng: np.random.Generator, num_classes: int, size: int) -> np.ndarray:
@@ -90,3 +92,65 @@ def make_vision_data(
         label_js=client_label_js(dists),
         test_images=test_images, test_labels=test_labels,
     )
+
+
+# ---------------------------------------------------------------------------
+# Language modelling: per-client "dialect" token streams
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class LMFedData:
+    """Per-client token streams. Heterogeneity = client-specific bigram rules."""
+
+    vocab: int
+    seq_len: int
+    rules: np.ndarray   # (K, 2) int — affine bigram rule per client
+    label_js: np.ndarray
+
+    @property
+    def num_clients(self) -> int:
+        return len(self.rules)
+
+    def _sample(self, k: int, n: int, rng: np.random.Generator) -> np.ndarray:
+        a, b = self.rules[k]
+        toks = np.empty((n, self.seq_len), np.int32)
+        toks[:, 0] = rng.integers(0, self.vocab, size=n)
+        noise = rng.random((n, self.seq_len)) < 0.1
+        rand = rng.integers(0, self.vocab, size=(n, self.seq_len))
+        for t in range(1, self.seq_len):
+            nxt = (toks[:, t - 1] * a + b) % self.vocab
+            toks[:, t] = np.where(noise[:, t], rand[:, t], nxt)
+        return toks
+
+    def client_batches(self, k: int, steps: int, batch: int,
+                       rng: np.random.Generator) -> Dict[str, torch.Tensor]:
+        """(steps, batch, seq_len) token draws for client k."""
+        toks = torch.from_numpy(
+            self._sample(k, steps * batch, rng).reshape(steps, batch, self.seq_len))
+        return {"tokens": toks, "labels": toks}
+
+    def eval_batch(self, batch: int = 32) -> Dict[str, torch.Tensor]:
+        """A fixed held-out batch, ``batch // K`` sequences from each client."""
+        rng = np.random.default_rng(1234)
+        per = max(batch // self.num_clients, 1)
+        toks = torch.from_numpy(np.concatenate(
+            [self._sample(k, per, rng) for k in range(self.num_clients)]))
+        return {"tokens": toks, "labels": toks}
+
+
+def make_lm_data(fed: FedConfig, vocab: int, seq_len: int = 64) -> LMFedData:
+    rng = np.random.default_rng(fed.seed)
+    a = rng.choice([3, 5, 7, 11, 13, 17, 19, 23], size=fed.num_clients)
+    b = rng.integers(0, vocab, size=fed.num_clients)
+    rules = np.stack([a, b], axis=1)
+    # Rule distance as a diversity proxy: JS over each rule's induced unigram
+    # histogram (token ids folded into min(vocab, 64) bins).
+    hists = np.zeros((fed.num_clients, min(vocab, 64)))
+    for k in range(fed.num_clients):
+        s = LMFedData(vocab, seq_len, rules, np.zeros(fed.num_clients))._sample(
+            k, 8, np.random.default_rng(k))
+        hists[k] = np.bincount(s.ravel() % hists.shape[1], minlength=hists.shape[1])
+    hists = hists / hists.sum(axis=1, keepdims=True)
+    js = js_divergence(hists, hists.mean(axis=0, keepdims=True))
+    return LMFedData(vocab=vocab, seq_len=seq_len, rules=rules, label_js=js)

@@ -73,6 +73,7 @@ class FLResult:
     select_ms: Optional[np.ndarray] = None
     execute_ms: Optional[np.ndarray] = None
     aggregate_ms: Optional[np.ndarray] = None
+    eval_ms: Optional[np.ndarray] = None
 
     @property
     def peak_acc(self) -> float:
@@ -103,15 +104,30 @@ class FLResult:
             "selection_std": self.selection_std,
         }
 
+    def labeled_summary(self) -> Dict[str, float]:
+        """``summary()`` with the eval metric named honestly in the keys."""
+        m = self.metric_name
+        return {
+            f"peak_{m}": self.peak_acc,
+            f"final_{m}": self.final_acc,
+            f"stable_{m}": self.stable_acc,
+            "stability_drop": self.stability_drop,
+            "selection_std": self.selection_std,
+        }
+
 
 def default_eval(model: Any, params: Any, batch: Dict[str, torch.Tensor]) -> float:
-    """Accuracy of the classifier on ``batch``."""
-    if model.cfg.family != "resnet":
-        raise NotImplementedError(f"no eval for family '{model.cfg.family}'")
+    """Accuracy for classifiers; exp(-loss) (per-token) for LM families."""
     with torch.no_grad():
-        logits = model.forward(params, batch)
-        return float(torch.mean((torch.argmax(logits, -1) == batch["labels"]
-                                 ).to(torch.float32)))
+        if model.cfg.family == "resnet":
+            logits = model.forward(params, batch)
+            return float(torch.mean((torch.argmax(logits, -1) == batch["labels"]
+                                     ).to(torch.float32)))
+        return float(torch.exp(-model.loss(params, batch)))
+
+
+def default_metric_name(model: Any) -> str:
+    return "accuracy" if model.cfg.family == "resnet" else "exp(-loss)"
 
 
 # ---------------------------------------------------------------------------
@@ -191,6 +207,7 @@ class RoundContext:
     select_ms: float = 0.0
     execute_ms: float = 0.0
     aggregate_ms: float = 0.0
+    eval_ms: float = 0.0
 
     @property
     def fed(self) -> FedConfig:
@@ -353,6 +370,7 @@ class MetricsHook(RoundHook):
         self.select_ms: List[float] = []
         self.execute_ms: List[float] = []
         self.aggregate_ms: List[float] = []
+        self.eval_ms: List[float] = []
 
     def on_round_end(self, ctx: RoundContext) -> None:
         self.metric.append(ctx.metric)
@@ -361,6 +379,7 @@ class MetricsHook(RoundHook):
         self.select_ms.append(ctx.select_ms)
         self.execute_ms.append(ctx.execute_ms)
         self.aggregate_ms.append(ctx.aggregate_ms)
+        self.eval_ms.append(ctx.eval_ms)
 
 
 class VerboseHook(RoundHook):
@@ -512,7 +531,7 @@ class FederatedEngine:
         score_cfg = spec.score_cfg or HeteRoScoreConfig()
         sel_cfg = spec.sel_cfg or SelectorConfig(num_selected=spec.fed.num_selected)
         self._select = make_selector(self.selector_name, sel_cfg, score_cfg)
-        self.metric_name = "accuracy"
+        self.metric_name = default_metric_name(spec.model)
 
         self.device: Optional[torch.device] = None
         self.params: Any = None
@@ -589,8 +608,15 @@ class FederatedEngine:
         )
         ctx.mask = mask_np
         ctx.selected = selected
-        ctx.metric = default_eval(spec.model, self.params, eval_batch)
+        self._eval(ctx, eval_batch)
         ctx.train_loss = float(np.mean(obs_loss[selected])) if len(selected) else 0.0
+
+    def _eval(self, ctx: RoundContext, eval_batch: Any) -> None:
+        """The round's eval metric and its host time (the metric's float()
+        waits for the device)."""
+        t0 = time.perf_counter()
+        ctx.metric = default_eval(self.spec.model, self.params, eval_batch)
+        ctx.eval_ms = (time.perf_counter() - t0) * 1e3
 
     def _dense_observations(self, selected: np.ndarray, cohort: CohortUpdates):
         k = self.spec.data.num_clients
@@ -619,4 +645,5 @@ class FederatedEngine:
             select_ms=np.asarray(self.metrics.select_ms),
             execute_ms=np.asarray(self.metrics.execute_ms),
             aggregate_ms=np.asarray(self.metrics.aggregate_ms),
+            eval_ms=np.asarray(self.metrics.eval_ms),
         )

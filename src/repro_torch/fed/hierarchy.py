@@ -54,8 +54,7 @@ from repro_torch.core.state import (pool_client_state, score_inputs,
 from repro_torch.device import synchronize
 from repro_torch.fed import server as fed_server
 from repro_torch.fed.engine import (FedAvg, FederatedEngine, FederatedSpec,
-                                    FLResult, RoundContext, WeightedFedAvg,
-                                    default_eval)
+                                    FLResult, RoundContext, WeightedFedAvg)
 from repro_torch.fed.partition import EdgePartition, partition_edges
 
 WARP = 32  # the segmented layout's slice width is a whole number of warps
@@ -368,7 +367,7 @@ class HierarchicalEngine(FederatedEngine):
         ctx.execute_ms = (t2 - t1) * 1e3
         ctx.aggregate_ms = (t3 - t2) * 1e3
         self._fold_observations(ctx, t, cohorts)
-        ctx.metric = default_eval(self.spec.model, self.params, eval_batch)
+        self._eval(ctx, eval_batch)
 
     def _result(self, extras: Dict[str, Any]) -> FLResult:
         extras.setdefault("cloud_uploads", np.asarray(self.cloud_uploads, np.int64))

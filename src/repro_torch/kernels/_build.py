@@ -38,6 +38,24 @@ class Built:
     log: str            # nvcc/ptxas output of the build that made ``path``
 
 
+def check_card(device) -> None:
+    """Raise unless ``device`` is a Hopper card (sm_90), the kernels' target."""
+    import torch
+
+    major, minor = torch.cuda.get_device_capability(device)
+    if (major, minor) != (9, 0):
+        raise RuntimeError(
+            f"the kernels are built for sm_90a (Hopper); "
+            f"{torch.cuda.get_device_name(device)} is sm_{major}{minor}")
+
+
+def stream(device) -> int:
+    """The current CUDA stream of ``device``, as the int the C entries take."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 

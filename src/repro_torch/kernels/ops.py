@@ -1,10 +1,22 @@
-"""Public wrappers around the hand-written kernels (K1–K4)."""
+"""Public wrappers around the hand-written kernels (K1–K5)."""
 
 from __future__ import annotations
 
 from repro_torch.core.scoring import HeteRoScoreConfig
 from repro_torch.core.state import ClientState, score_inputs
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import score_select as _ss
+
+
+def flash_mha(q, k, v, *, causal: bool = True, window: int = 0):
+    """GQA flash attention (K5). q: (B,S,H,D); k,v: (B,T,KVH,D) → (B,S,H,D).
+
+    Unlike the reference's ``flash_mha`` there is no KV-head repeat and no
+    head-major transpose: the kernel reads the model's layout through its
+    strides, query head h reading KV head h // (H / KVH). Differentiable and
+    vmappable (``kernels.flash_attention.FlashAttention``).
+    """
+    return _fa.FlashAttention.apply(q, k, v, causal, window)[0]
 
 
 def heterosel_topm(state: ClientState, round_idx, tau, m: int, gumbel,

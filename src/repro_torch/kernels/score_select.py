@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.scoring import HeteRoScoreConfig, diversity_decay
+from repro_torch.kernels import _build
 
 MAX_BLOCK = 2048    # clients per CTA: the in-block sort fits 16 KB of smem
 MIN_BLOCK = 32      # one warp
@@ -76,8 +77,6 @@ class _ScoreCfg(ctypes.Structure):
 @functools.cache
 def _library() -> ctypes.CDLL:
     """Build (first use) and load csrc/score_select.cu, with its C types."""
-    from repro_torch.kernels import _build
-
     lib = _build.build("score_select").lib
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.hs_stats.argtypes = [i, p, ll, i, i, ll, p, p]
@@ -96,14 +95,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_card(device: torch.device) -> None:
-    major, minor = torch.cuda.get_device_capability(device)
-    if (major, minor) != (9, 0):
-        raise RuntimeError(
-            f"the score_select kernels are built for sm_90a (Hopper); "
-            f"{torch.cuda.get_device_name(device)} is sm_{major}{minor}")
-
-
 def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} "
@@ -112,10 +103,6 @@ def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 def _dtype_code(x: torch.Tensor) -> int:
     return {torch.float32: 0, torch.bfloat16: 1}[x.dtype]
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _cfg_struct(cfg: HeteRoScoreConfig) -> _ScoreCfg:
@@ -208,11 +195,11 @@ def score_stats(stacked: torch.Tensor, *, k: int, block: int) -> torch.Tensor:
     nblocks = _check_stacked(stacked, block)
     if stacked.device.type == "cpu":
         return score_stats_plain(stacked, k=k, block=block)
-    _check_card(stacked.device)
+    _build.check_card(stacked.device)
     lib = _library()
     out = torch.empty((nblocks, NSTATS), dtype=torch.float32, device=stacked.device)
     rc = lib.hs_stats(_dtype_code(stacked), stacked.data_ptr(), stacked.shape[1],
-                      block, nblocks, k, out.data_ptr(), _stream(stacked.device))
+                      block, nblocks, k, out.data_ptr(), _build.stream(stacked.device))
     _raise_on(lib, rc, "score_stats")
     LAUNCHES["score_stats"] += 1
     return out
@@ -339,7 +326,7 @@ def score_select(stacked, glob, gumbel, *, k: int, block: int, t: float,
         return score_select_plain(stacked, glob, gumbel, k=k, block=block, t=t,
                                   tau=tau, use_ov=use_ov, decay=decay, cfg=cfg,
                                   mb=mb)
-    _check_card(stacked.device)
+    _build.check_card(stacked.device)
     lib = _library()
     dev = stacked.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -353,7 +340,7 @@ def score_select(stacked, glob, gumbel, *, k: int, block: int, t: float,
                        int(use_ov), decay, ctypes.byref(_cfg_struct(cfg)), mb,
                        scores.data_ptr(),
                        e.data_ptr(), part.data_ptr(), cval.data_ptr(),
-                       cidx.data_ptr(), _stream(dev))
+                       cidx.data_ptr(), _build.stream(dev))
     _raise_on(lib, rc, "score_select")
     LAUNCHES["score_select"] += 1
     return scores, e, part, cval, cidx
@@ -382,7 +369,7 @@ def score_probs(stacked, glob, *, k: int, block: int, t: float, tau: float,
     if stacked.device.type == "cpu":
         return score_probs_plain(stacked, glob, k=k, block=block, t=t, tau=tau,
                                  use_ov=use_ov, decay=decay, cfg=cfg)
-    _check_card(stacked.device)
+    _build.check_card(stacked.device)
     lib = _library()
     dev = stacked.device
     kpad = stacked.shape[1]
@@ -392,7 +379,7 @@ def score_probs(stacked, glob, *, k: int, block: int, t: float, tau: float,
     rc = lib.hs_score(_dtype_code(stacked), stacked.data_ptr(), glob.data_ptr(),
                       kpad, block, nblocks, k, t, tau, int(use_ov), decay,
                       ctypes.byref(_cfg_struct(cfg)), scores.data_ptr(),
-                      e.data_ptr(), part.data_ptr(), _stream(dev))
+                      e.data_ptr(), part.data_ptr(), _build.stream(dev))
     _raise_on(lib, rc, "score_probs")
     LAUNCHES["score_probs"] += 1
     return scores, e, part
@@ -448,7 +435,7 @@ def segment_probs(stacked, sizes, *, seg: int, t: float, tau: float,
     if stacked.device.type == "cpu":
         return segment_probs_plain(stacked, sizes, seg=seg, t=t, tau=tau,
                                    use_ov=use_ov, decay=decay, cfg=cfg)
-    _check_card(stacked.device)
+    _build.check_card(stacked.device)
     lib = _library()
     dev = stacked.device
     kpad = stacked.shape[1]
@@ -457,7 +444,7 @@ def segment_probs(stacked, sizes, *, seg: int, t: float, tau: float,
     rc = lib.hs_segment(_dtype_code(stacked), stacked.data_ptr(), sizes.data_ptr(),
                         kpad, num_edges, seg, t, tau, int(use_ov), decay,
                         ctypes.byref(_cfg_struct(cfg)), probs.data_ptr(),
-                        scores.data_ptr(), _stream(dev))
+                        scores.data_ptr(), _build.stream(dev))
     _raise_on(lib, rc, "segment_probs")
     LAUNCHES["segment_probs"] += 1
     return probs, scores

@@ -6,7 +6,8 @@ Same surface as ``repro.models.model`` for the ported families:
   loss(params, batch)      → scalar f32 loss
   forward(params, batch)   → logits
 
-Only the resnet family is ported; it has no decode step.
+The resnet and dense families are ported; decode steps wait for the
+serving slice.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import resnet
+from repro_torch.models import dense, resnet
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,5 +40,13 @@ def build_model(cfg: ModelConfig) -> Model:
             loss=lambda p, b: resnet.loss_fn(module, p, b),
             forward=lambda p, b: resnet.forward(module, p, b["images"]),
         )
+    if cfg.family == "dense":
+        return Model(
+            cfg=cfg,
+            module=dense.DenseLM(cfg),
+            init_params=lambda gen: dense.init_params(cfg, gen),
+            loss=lambda p, b: dense.loss_fn(cfg, p, b),
+            forward=lambda p, b: dense.forward(cfg, p, b["tokens"]),
+        )
     raise NotImplementedError(
-        f"model family '{cfg.family}' is not ported; only 'resnet' is")
+        f"model family '{cfg.family}' is not ported; only 'resnet' and 'dense' are")

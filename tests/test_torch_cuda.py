@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1–K4) against their plain PyTorch versions, on
+"""The port's CUDA kernels (K1–K5) against their plain PyTorch versions, on
 the card.
 
 Every test here is marked ``cuda`` and skips when torch sees no device. The
@@ -8,7 +8,13 @@ only the port is installed:
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
 Selected sets are compared exactly; scores and probabilities to 1e-5
-relative (K1 sums Σ‖Δw‖² in another order than ``torch.sum``).
+relative (K1 sums Σ‖Δw‖² in another order than ``torch.sum``). K5's f32
+outputs to 1e-5 relative and 1e-6 absolute, its bf16 outputs within one
+bf16 ulp of the plain version's plus the same 1e-6: the kernel and the plain
+version sum the scores and p·v in other orders, so their f32 results differ
+by up to ~5e-7 where the p·v sum cancels to near 0 (measured on the CPU
+against f64), more than one bf16 ulp of such an output; each then rounds
+its f32 result to bf16 once.
 """
 
 import pytest
@@ -18,6 +24,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.scoring import HeteRoScoreConfig
 from repro_torch.core.selection import SelectorConfig, dynamic_temperature, gumbel_noise
 from repro_torch.core.state import NEVER
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops
 from repro_torch.kernels import score_select as tss
 
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -145,3 +153,145 @@ def test_cuda_segment_probs_matches_plain(cuda_device, sizes, seg, dtype, overri
         assert bool((probs_k[pad] == 0).all()) and bool((scores_k[pad] == 0).all())
         if n:
             assert float(probs_k[e * seg:e * seg + n].sum()) == pytest.approx(1.0, abs=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K5: flash attention
+# ---------------------------------------------------------------------------
+
+# (B, S, T, H, KVH, D, causal, window)
+FLASH_CASES = [
+    (32, 32, 32, 14, 2, 64, True, 0),      # the LM path's shape (a quarter of its batch)
+    (1, 1000, 1000, 14, 2, 64, True, 0),   # T-padding and the ragged edge
+    (1, 1000, 1000, 14, 2, 64, True, 256), # sliding window
+    (2, 300, 300, 4, 4, 128, False, 0),    # MHA, non-causal
+    (1, 100, 100, 2, 1, 256, True, 0),     # the largest head_dim
+    (2, 20, 70, 4, 2, 16, False, 0),       # S < T, S smaller than a tile
+]
+FLASH_IDS = ["path", "T1000", "window", "mha", "d256", "cross"]
+
+
+def _bf16_ulp(x):
+    e = torch.floor(torch.log2(torch.clamp_min(x.abs().float(), 2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def assert_flash_close(got, want):
+    if got.dtype == torch.bfloat16:
+        gap = (got.float() - want.float()).abs()
+        assert bool((gap <= _bf16_ulp(want) + 1e-6).all()), float(gap.max())
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _qkv(case, dtype, dev, seed=0):
+    b, s, t, h, kvh, d = case[:6]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((b, s, h, d), (b, t, kvh, d), (b, t, kvh, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=FLASH_IDS)
+def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
+    causal, window = case[6], case[7]
+    q, k, v = _qkv(case, dtype, cuda_device)
+    before = tfa.LAUNCHES["flash_attention"]
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention"] == before + 1
+    o_p, lse_p = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert o.dtype == dtype and o.shape == q.shape and o.is_contiguous()
+    assert_flash_close(o, o_p)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_reads_strided_operands(cuda_device):
+    """q, k, v as views with non-default batch, sequence and head strides
+    (a packed qkv projection), read in place."""
+    b, s, h, kvh, d = 2, 80, 4, 2, 32
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    packed = torch.randn(b, s, h + 2 * kvh, d, generator=gen, device=cuda_device)
+    q, k, v = packed[:, :, :h], packed[:, :, h:h + kvh], packed[:, :, h + kvh:]
+    assert not q.is_contiguous()
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    o_p, lse_p = tfa.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                           v.contiguous(), causal=True)
+    assert_flash_close(o, o_p)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_vmap_grad_is_one_launch(cuda_device):
+    """vmap∘grad over a client axis on the card: one forward launch for the
+    whole cohort (the vmap rule folds the clients into the batch), none in
+    the backward, and the gradients of the CPU path on the same inputs."""
+    n, case = 4, (8, 32, 32, 14, 2, 64, True, 0)
+    q, k, v = (x.unsqueeze(0).expand(n, *x.shape).contiguous()
+               for x in _qkv(case, torch.float32, cuda_device, seed=2))
+    w = torch.randn(q.shape, generator=torch.Generator(device=cuda_device).manual_seed(3),
+                    device=cuda_device)
+
+    def loss(q, k, v, w):
+        return (ops.flash_mha(q, k, v, causal=True) * w).sum()
+
+    grad = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)))
+    before = tfa.LAUNCHES["flash_attention"]
+    got = grad(q, k, v, w)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention"] == before + 1
+    want = grad(q.cpu(), k.cpu(), v.cpu(), w.cpu())
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g.cpu(), r, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_vmap_grad_over_many_draws(cuda_device):
+    """The check above over 50 draws of q, k, v and the weights, each with
+    its own seed. Each card gradient is computed twice and the two must be
+    bitwise equal (no race, no dependence on the order CTAs or GEMM tiles
+    run in); each must agree with the CPU path to the tolerance above. All
+    draws run before the verdict, and the message lists every failing one
+    with its largest error and its position."""
+    n, case = 4, (8, 32, 32, 14, 2, 64, True, 0)
+
+    def loss(q, k, v, w):
+        return (ops.flash_mha(q, k, v, causal=True) * w).sum()
+
+    grad = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)))
+    failures, worst = [], 0.0
+    for draw in range(50):
+        q, k, v = (x.unsqueeze(0).expand(n, *x.shape).contiguous()
+                   for x in _qkv(case, torch.float32, cuda_device, seed=100 + draw))
+        gen = torch.Generator(device=cuda_device).manual_seed(1000 + draw)
+        w = torch.randn(q.shape, generator=gen, device=cuda_device)
+        got, again = grad(q, k, v, w), grad(q, k, v, w)
+        want = grad(q.cpu(), k.cpu(), v.cpu(), w.cpu())
+        for name, g, g2, r in zip("qkv", got, again, want):
+            if not torch.equal(g, g2):
+                diff = (g - g2).abs()
+                failures.append(f"draw {draw} d{name}: two card runs differ, max "
+                                f"{float(diff.max()):.3e} at flat index {int(diff.argmax())}")
+            err = (g.cpu() - r).abs()
+            ratio = err / (1e-5 + 1e-5 * r.abs())
+            worst = max(worst, float(ratio.max()))
+            if bool((ratio > 1).any()):
+                i = int(ratio.argmax())
+                failures.append(f"draw {draw} d{name}: |card - cpu| {float(err.flatten()[i]):.3e} "
+                                f"at flat index {i} (cpu value {float(r.flatten()[i]):.6e}), "
+                                f"{int((ratio > 1).sum())} entries over the tolerance")
+    assert not failures, "\n".join(failures) + f"\nworst error / tolerance {worst:.3f}"
+    print(f"vmap∘grad over 50 draws: worst error / tolerance {worst:.3f}")
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_bad_operands(cuda_device):
+    q = torch.randn(1, 8, 4, 16, device=cuda_device)
+    k = torch.randn(1, 8, 2, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="one device"):
+        tfa.flash_attention_fwd(q, k.cpu(), k, causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention_fwd(q, k.transpose(1, 3).contiguous().transpose(1, 3), k,
+                                causal=True)

@@ -11,10 +11,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.configs.base import FedConfig as JaxFedConfig
+from repro.data import make_lm_data as jax_make_lm_data
 from repro.data import make_vision_data as jax_make_vision_data
 from repro.fed import partition as jpartition
 from repro_torch.configs.base import FedConfig
-from repro_torch.data import make_vision_data
+from repro_torch.data import make_lm_data, make_vision_data
 from repro_torch.fed import batched, partition
 
 
@@ -42,6 +43,28 @@ def test_make_vision_data_is_bitwise(k, alpha, seed):
         np.testing.assert_array_equal(bt["labels"].numpy(), np.asarray(bj["labels"]))
     np.testing.assert_array_equal(got.eval_batch()["labels"].numpy(),
                                   np.asarray(ref.eval_batch()["labels"]))
+
+
+@pytest.mark.parametrize("k,vocab,seq_len,seed", [(8, 512, 32, 0), (5, 151936, 17, 3)])
+def test_make_lm_data_is_bitwise(k, vocab, seq_len, seed):
+    ref = jax_make_lm_data(JaxFedConfig(num_clients=k, seed=seed), vocab, seq_len)
+    got = make_lm_data(FedConfig(num_clients=k, seed=seed), vocab, seq_len)
+    assert (got.vocab, got.seq_len, got.num_clients) == (vocab, seq_len, k)
+    for name in ("rules", "label_js"):
+        a, b = getattr(got, name), getattr(ref, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    rng_t, rng_j = np.random.default_rng(5), np.random.default_rng(5)
+    for c in range(k):
+        bt = got.client_batches(c, 3, 4, rng_t)
+        bj = ref.client_batches(c, 3, 4, rng_j)
+        assert bt["tokens"].shape == (3, 4, seq_len) and bt["tokens"].dtype == torch.int32
+        for key in ("tokens", "labels"):
+            np.testing.assert_array_equal(bt[key].numpy(), np.asarray(bj[key]))
+    for batch in (32, 3):
+        et, ej = got.eval_batch(batch), ref.eval_batch(batch)
+        for key in ("tokens", "labels"):
+            np.testing.assert_array_equal(et[key].numpy(), np.asarray(ej[key]))
 
 
 def test_stacked_batches_consume_rng_like_per_client_draws():

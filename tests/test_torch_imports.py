@@ -34,6 +34,17 @@ def test_port_imports_no_jax_and_no_reference():
     assert not bad, bad
 
 
+def test_port_calls_no_library_attention_or_compiler():
+    """K5 is the port's own kernel: no module of the port reaches PyTorch's
+    fused attention, cuDNN attention or torch.compile."""
+    banned = ("scaled_dot_product_attention", "torch.compile", "_cudnn_attention",
+              "cudnn_attention", "flash_attention_forward", "_efficient_attention")
+    bad = [f"{f.relative_to(ROOT)}: {word}"
+           for f in sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+           for word in banned if word in f.read_text()]
+    assert not bad, bad
+
+
 def test_cuda_request_without_a_card_raises():
     from repro_torch.device import resolve_device
 
