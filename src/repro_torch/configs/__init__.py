@@ -1,4 +1,4 @@
-"""Configs: model architecture and federated setup (resnet and dense families)."""
+"""Configs: model architecture and federated setup (resnet, dense and ssm families)."""
 
 from repro_torch.configs.base import FedConfig, ModelConfig
 from repro_torch.configs.registry import get_config, smoke_variant

@@ -1,8 +1,8 @@
 """Config dataclasses: model architecture and federated setup.
 
 Plain frozen dataclasses, as in ``repro.configs.base``. Only the fields the
-ported families (resnet, dense) and the sync engines (flat and hierarchical)
-read are carried over.
+ported families (resnet, dense, ssm) and the sync engines (flat and
+hierarchical) read are carried over.
 """
 
 from __future__ import annotations
@@ -31,6 +31,11 @@ class ModelConfig:
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     sliding_window: int = 0           # 0 ⇒ full attention
+    # SSM (mamba2)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_chunk: int = 256
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     # vision classification (resnet)
@@ -44,6 +49,14 @@ class ModelConfig:
     @property
     def padded_vocab(self) -> int:
         return int(math.ceil(self.vocab_size / VOCAB_PAD) * VOCAB_PAD)
+
+    @property
+    def d_inner(self) -> int:  # mamba2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
 
 
 @dataclasses.dataclass(frozen=True)

@@ -56,6 +56,14 @@ def stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def fold_client_axis(x, dim, n: int):
+    """For a kernel's ``autograd.Function.vmap`` rule: move the vmapped axis
+    (or broadcast an unbatched input) to the front and fold it into the
+    batch axis, (n, B, ...) → (n·B, ...), so one launch covers the cohort."""
+    x = x.movedim(dim, 0) if dim is not None else x.expand(n, *x.shape)
+    return x.reshape(n * x.shape[1], *x.shape[2:])
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 

@@ -225,13 +225,6 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, window: int = 0):
     return (dq.to(q.dtype), torch.cat(dks, 1).to(k.dtype), torch.cat(dvs, 1).to(v.dtype))
 
 
-def _fold(x: torch.Tensor, dim, n: int) -> torch.Tensor:
-    """Move the vmapped axis (or broadcast an unbatched input) to the front
-    and fold it into the batch axis: (n, B, ...) → (n·B, ...)."""
-    x = x.movedim(dim, 0) if dim is not None else x.expand(n, *x.shape)
-    return x.reshape(n * x.shape[1], *x.shape[2:])
-
-
 class FlashAttention(torch.autograd.Function):
     """K5 with a plain-PyTorch backward and a batch-folding vmap rule.
 
@@ -263,6 +256,7 @@ class FlashAttention(torch.autograd.Function):
     def vmap(info, in_dims, q, k, v, causal, window):
         n = info.batch_size
         qd, kd, vd = in_dims[:3]
-        o, lse = FlashAttention.apply(_fold(q, qd, n), _fold(k, kd, n),
-                                      _fold(v, vd, n), causal, window)
+        fold = _build.fold_client_axis
+        o, lse = FlashAttention.apply(fold(q, qd, n), fold(k, kd, n),
+                                      fold(v, vd, n), causal, window)
         return (o.reshape(n, -1, *o.shape[1:]), lse.reshape(n, -1, *lse.shape[1:])), (0, 0)

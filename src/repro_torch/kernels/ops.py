@@ -1,11 +1,14 @@
-"""Public wrappers around the hand-written kernels (K1–K5)."""
+"""Public wrappers around the hand-written kernels (K1–K5, K7)."""
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.core.scoring import HeteRoScoreConfig
 from repro_torch.core.state import ClientState, score_inputs
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import score_select as _ss
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def flash_mha(q, k, v, *, causal: bool = True, window: int = 0):
@@ -17,6 +20,47 @@ def flash_mha(q, k, v, *, causal: bool = True, window: int = 0):
     vmappable (``kernels.flash_attention.FlashAttention``).
     """
     return _fa.FlashAttention.apply(q, k, v, causal, window)[0]
+
+
+def ssd_forward(x, dt, a_neg, b_in, c_in, *, chunk: int = 256, h0=None):
+    """Full SSD: K7 for the intra-chunk part, then the cross-chunk recurrence
+    and the inter-chunk correction in plain PyTorch (jnp in the reference,
+    outside any Pallas kernel).
+
+    x: (B,S,NH,HP) f32; dt: (B,S,NH) f32 post-softplus; a_neg: (NH,);
+    b/c: (B,S,N); h0: (B,NH,HP,N) state entering the first chunk, or None
+    for zeros. Returns (y (B,S,NH,HP) f32, h_final (B,NH,HP,N)).
+
+    S is padded to a multiple of ``chunk`` with zeros (a padded row has
+    dt = 0, so it adds nothing and leaves cum_last at the last real row's).
+    The correction C_i·(e^{cum_i}·H_enter) is one einsum over N times
+    e^{cum}: the reference's three-operand einsum, contracted left to right,
+    would form a (B, NC, CL, N, NH) product first. With one chunk and no h0
+    the state entering it is 0 and the correction is skipped (it is exactly
+    0). Differentiable and vmappable (``kernels.ssd_scan.SSDChunk``).
+    """
+    bsz, s, nh, hp = x.shape
+    n = b_in.shape[-1]
+    xc, dtc, bc, cc = _ssd.to_chunks(x, dt, b_in, c_in, chunk)
+    nc = xc.shape[1]
+    y_intra, states, cum_last = _ssd.SSDChunk.apply(xc, dtc, a_neg.expand(bsz, nh), bc, cc)
+    if nc == 1 and h0 is None:
+        return y_intra[:, 0, :s], states[:, 0]
+
+    # Cross-chunk recurrence: the state entering each chunk.
+    chunk_decay = torch.exp(cum_last)                            # (B, NC, NH)
+    h = torch.zeros((bsz, nh, hp, n), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0
+    h_enter = []
+    for ci in range(nc):
+        h_enter.append(h)
+        h = chunk_decay[:, ci, :, None, None] * h + states[:, ci]
+    h_enter = torch.stack(h_enter, 1)                            # (B, NC, NH, HP, N)
+
+    cum = _ssd.chunk_cumsum(dtc * a_neg)
+    y_inter = torch.einsum("bcin,bchpn->bcihp", cc, h_enter) * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(bsz, nc * chunk, nh, hp)
+    return y[:, :s], h
 
 
 def heterosel_topm(state: ClientState, round_idx, tau, m: int, gumbel,

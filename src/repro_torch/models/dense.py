@@ -14,7 +14,7 @@ reference's per-layer ``jax.checkpoint`` (remat) is not ported.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict
 
 import torch
 from torch import nn
@@ -22,12 +22,9 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (DEFAULT_DTYPE, Params, cross_entropy,
-                                       embed_tokens, gated_mlp, init_embeddings,
-                                       init_gated_mlp, rms_norm, unembed)
-
-
-def _meta(*shape, dtype=DEFAULT_DTYPE) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device="meta"))
+                                       embed_tokens, flatten, gated_mlp,
+                                       init_embeddings, init_gated_mlp, meta_param,
+                                       rms_norm, split_layers, unembed)
 
 
 class DenseLM(nn.Module):
@@ -38,34 +35,24 @@ class DenseLM(nn.Module):
         L, d, hd = cfg.num_layers, cfg.d_model, cfg.resolved_head_dim
         h, kvh = cfg.num_heads, cfg.num_kv_heads
         self.embed = nn.Module()
-        self.embed.tok_embed = _meta(cfg.padded_vocab, d)
+        self.embed.tok_embed = meta_param(cfg.padded_vocab, d)
         if not cfg.tie_embeddings:
-            self.embed.unembed = _meta(d, cfg.padded_vocab)
+            self.embed.unembed = meta_param(d, cfg.padded_vocab)
         self.layers = nn.Module()
         self.layers.attn = nn.Module()
         for name, shape in (("wq", (d, h, hd)), ("wk", (d, kvh, hd)),
                             ("wv", (d, kvh, hd)), ("wo", (h, hd, d))):
-            setattr(self.layers.attn, name, _meta(L, *shape))
+            setattr(self.layers.attn, name, meta_param(L, *shape))
         if cfg.qkv_bias:
             for name, heads in (("bq", h), ("bk", kvh), ("bv", kvh)):
-                setattr(self.layers.attn, name, _meta(L, heads, hd))
+                setattr(self.layers.attn, name, meta_param(L, heads, hd))
         self.layers.mlp = nn.Module()
         for name, shape in (("w_gate", (d, cfg.d_ff)), ("w_up", (d, cfg.d_ff)),
                             ("w_down", (cfg.d_ff, d))):
-            setattr(self.layers.mlp, name, _meta(L, *shape))
-        self.layers.ln1 = _meta(L, d, dtype=torch.float32)
-        self.layers.ln2 = _meta(L, d, dtype=torch.float32)
-        self.final_norm = _meta(d, dtype=torch.float32)
-
-
-def _flatten(tree: dict, prefix: str = "") -> Params:
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_flatten(v, f"{prefix}{k}."))
-        else:
-            out[prefix + k] = v
-    return out
+            setattr(self.layers.mlp, name, meta_param(L, *shape))
+        self.layers.ln1 = meta_param(L, d, dtype=torch.float32)
+        self.layers.ln2 = meta_param(L, d, dtype=torch.float32)
+        self.final_norm = meta_param(d, dtype=torch.float32)
 
 
 def init_layer(generator: torch.Generator, cfg: ModelConfig) -> Params:
@@ -84,31 +71,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     """Fresh weights on the generator's device, drawn as the reference draws
     them (shapes, dtypes, distributions) from torch's stream."""
     embed = init_embeddings(generator, cfg.padded_vocab, cfg.d_model, cfg.tie_embeddings)
-    layers = [_flatten(init_layer(generator, cfg)) for _ in range(cfg.num_layers)]
-    params = _flatten({"embed": embed})
+    layers = [flatten(init_layer(generator, cfg)) for _ in range(cfg.num_layers)]
+    params = flatten({"embed": embed})
     params.update({f"layers.{k}": torch.stack([lp[k] for lp in layers])
                    for k in layers[0]})
     params["final_norm"] = torch.ones((cfg.d_model,), dtype=torch.float32,
                                       device=generator.device)
     return params
-
-
-def _layers(params: Params, num_layers: int) -> List[Dict[str, Params]]:
-    """Each layer's params, nested as the reference's scan body sees them.
-
-    Each stacked (L, …) leaf is split once with ``torch.unbind``, whose
-    backward is one ``stack`` into the leaf's gradient. Indexing the leaf per
-    layer instead would make each layer's backward zero-fill and add a
-    gradient the size of the whole stack (L² bytes per step, as the
-    reference's ``lax.scan`` does not).
-    """
-    lps: List[Dict[str, Params]] = [{"attn": {}, "mlp": {}} for _ in range(num_layers)]
-    for name, p in params.items():
-        if name.startswith("layers."):
-            *group, leaf = name[len("layers."):].split(".")
-            for lp, p_i in zip(lps, torch.unbind(p, 0)):
-                (lp[group[0]] if group else lp)[leaf] = p_i
-    return lps
 
 
 def _layer_body(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -125,7 +94,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Ten
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = embed_tokens({"tok_embed": params["embed.tok_embed"]}, tokens).to(DEFAULT_DTYPE)
-    for lp in _layers(params, cfg.num_layers):
+    for lp in split_layers(params, cfg.num_layers):
         x = _layer_body(cfg, x, positions, lp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     embed = {k[len("embed."):]: v for k, v in params.items() if k.startswith("embed.")}

@@ -10,10 +10,11 @@ promotes both operands; ``torch.einsum`` refuses mixed operands, so
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 Params = Dict[str, torch.Tensor]
 
@@ -25,6 +26,48 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``jnp.einsum`` promotes them (bf16 × f32 → f32)."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees of the LM families (dense, ssm)
+# ---------------------------------------------------------------------------
+
+
+def meta_param(*shape, dtype=DEFAULT_DTYPE) -> nn.Parameter:
+    """A weight's name, shape and dtype, with no storage (meta device)."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device="meta"))
+
+
+def flatten(tree: dict, prefix: str = "") -> Params:
+    """Nested dict → flat dict keyed by dotted paths."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def split_layers(params: Params, num_layers: int) -> List[dict]:
+    """Each layer's params, nested as the reference's scan body sees them
+    (``layers.attn.wq`` of layer i → ``lps[i]["attn"]["wq"]``).
+
+    Each stacked (L, …) leaf is split once with ``torch.unbind``, whose
+    backward is one ``stack`` into the leaf's gradient. Indexing the leaf per
+    layer instead would make each layer's backward zero-fill and add a
+    gradient the size of the whole stack (L² bytes per step, as the
+    reference's ``lax.scan`` does not).
+    """
+    lps: List[dict] = [{} for _ in range(num_layers)]
+    for name, p in params.items():
+        if name.startswith("layers."):
+            *group, leaf = name[len("layers."):].split(".")
+            for lp, p_i in zip(lps, torch.unbind(p, 0)):
+                for g in group:
+                    lp = lp.setdefault(g, {})
+                lp[leaf] = p_i
+    return lps
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,8 @@ Same surface as ``repro.models.model`` for the ported families:
   loss(params, batch)      → scalar f32 loss
   forward(params, batch)   → logits
 
-The resnet and dense families are ported; decode steps wait for the
-serving slice.
+The resnet, dense and ssm (mamba2) families are ported; decode steps wait
+for the serving slice.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import dense, resnet
+from repro_torch.models import dense, mamba2, resnet
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,5 +48,14 @@ def build_model(cfg: ModelConfig) -> Model:
             loss=lambda p, b: dense.loss_fn(cfg, p, b),
             forward=lambda p, b: dense.forward(cfg, p, b["tokens"]),
         )
+    if cfg.family == "ssm":
+        return Model(
+            cfg=cfg,
+            module=mamba2.Mamba2LM(cfg),
+            init_params=lambda gen: mamba2.init_params(cfg, gen),
+            loss=lambda p, b: mamba2.loss_fn(cfg, p, b),
+            forward=lambda p, b: mamba2.forward(cfg, p, b["tokens"]),
+        )
     raise NotImplementedError(
-        f"model family '{cfg.family}' is not ported; only 'resnet' and 'dense' are")
+        f"model family '{cfg.family}' is not ported; only 'resnet', 'dense' and "
+        "'ssm' are")

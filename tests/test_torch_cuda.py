@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1–K5) against their plain PyTorch versions, on
+"""The port's CUDA kernels (K1–K5, K7) against their plain PyTorch versions, on
 the card.
 
 Every test here is marked ``cuda`` and skips when torch sees no device. The
@@ -295,3 +295,127 @@ def test_cuda_flash_attention_refuses_bad_operands(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention_fwd(q, k.transpose(1, 3).contiguous().transpose(1, 3), k,
                                 causal=True)
+
+
+# ---------------------------------------------------------------------------
+# K7 (SSD chunk)
+# ---------------------------------------------------------------------------
+
+# (B, S, CL, NH, HP, N): chip_smoke.py's cases: the mamba2 path's shape, S not
+# a multiple of CL (a padded chunk), the CPU tests' smoke shape, a 4096-token
+# prompt of 16 chunks.
+SSD_CASES = [(32, 256, 256, 32, 64, 128), (3, 300, 128, 5, 64, 128), (8, 32, 32, 16, 32, 16),
+             (1, 4096, 256, 32, 64, 128)]
+SSD_IDS = ["path", "ragged", "smoke", "prefill4096"]
+
+
+def _ssd_inputs(bsz, s, nh, hp, n, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    return (r(bsz, s, nh, hp), torch.nn.functional.softplus(-2.0 + 0.5 * r(bsz, s, nh)),
+            -torch.exp(0.3 * r(nh)), r(bsz, s, n), r(bsz, s, n))
+
+
+def _close_to_max(got, want, rtol=1e-5):
+    """K7 against its plain version: rtol 1e-5 plus 1e-5 of the largest
+    entry; the two sum C·Bᵀ, W·x and the state in other orders (cuBLAS
+    GEMMs in the plain version) and share cum (both sum it in f64)."""
+    torch.testing.assert_close(got, want, rtol=rtol, atol=rtol * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES, ids=SSD_IDS)
+def test_cuda_ssd_chunk_matches_plain(cuda_device, case):
+    from repro_torch.kernels import ssd_scan as tssd
+
+    bsz, s, cl, nh, hp, n = case
+    x, dt, a, b, c = _ssd_inputs(bsz, s, nh, hp, n, cuda_device)
+    xc, dtc, bc, cc = tssd.to_chunks(x, dt, b, c, cl)
+    before = tssd.LAUNCHES["ssd_chunk"]
+    got = tssd.ssd_chunk(xc, dtc, a.expand(bsz, nh), bc, cc)
+    torch.cuda.synchronize()
+    assert tssd.LAUNCHES["ssd_chunk"] == before + 1
+    want = tssd.ssd_chunk_plain(xc, dtc, a.expand(bsz, nh), bc, cc)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.is_contiguous()
+        _close_to_max(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunk_reads_strided_operands(cuda_device):
+    """b and c as the two halves of one (B, NC, CL, 2N) tensor (the model's
+    split of the B‖C conv output), dt and a_neg with non-default strides:
+    read in place."""
+    from repro_torch.kernels import ssd_scan as tssd
+
+    bsz, nc, cl, nh, hp, n = 2, 2, 64, 4, 32, 16
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    r = lambda *shape: torch.randn(shape, generator=gen, device=cuda_device)
+    x = r(bsz, nc, cl, nh, hp)
+    dt = torch.nn.functional.softplus(-2.0 + r(bsz, nc, nh, cl)).transpose(2, 3)
+    a = (-torch.exp(r(nh))).expand(bsz, nh)
+    b, c = torch.split(r(bsz, nc, cl, 2 * n), n, dim=-1)
+    assert not b.is_contiguous() and not dt.is_contiguous() and a.stride(0) == 0
+    got = tssd.ssd_chunk(x, dt, a, b, c)
+    want = tssd.ssd_chunk_plain(x, dt.contiguous(), a.contiguous(), b.contiguous(),
+                                c.contiguous())
+    for g, w in zip(got, want):
+        _close_to_max(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_vmap_grad_is_one_launch_and_none_in_backward(cuda_device):
+    """vmap∘grad over 4 clients, each with its own a_neg, on the card: one
+    K7 launch for the whole cohort's forward, none in the backward, and the
+    gradients of the CPU path on the same inputs."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as tssd
+
+    n_clients, bsz, s, nh, hp, n = 4, 2, 96, 4, 16, 16
+    x, dt, _, b, c = _ssd_inputs(n_clients * bsz, s, nh, hp, n, cuda_device, seed=2)
+    split = lambda u: u.reshape(n_clients, bsz, *u.shape[1:])
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    a = -torch.exp(0.3 * torch.randn(n_clients, nh, generator=gen, device=cuda_device))
+    w = torch.randn(n_clients, bsz, s, nh, hp, generator=gen, device=cuda_device)
+
+    def loss(x, dt, a, b, c, w):
+        y, h = ops.ssd_forward(x, dt, a, b, c, chunk=32)
+        return (y * w).sum() + h.sum()
+
+    grad = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2, 3, 4)))
+    args = (split(x), split(dt), a, split(b), split(c), w)
+    launches = []
+    bwd = tssd.ssd_chunk_bwd
+
+    def counting_bwd(*t):
+        launches.append(tssd.LAUNCHES["ssd_chunk"])
+        return bwd(*t)
+
+    tssd.ssd_chunk_bwd = counting_bwd
+    try:
+        before = tssd.LAUNCHES["ssd_chunk"]
+        got = grad(*args)
+        torch.cuda.synchronize()
+        after = tssd.LAUNCHES["ssd_chunk"]
+    finally:
+        tssd.ssd_chunk_bwd = bwd
+    assert after == before + 1 and launches == [after]   # the backward launched none
+    want = grad(*(u.cpu() for u in args))
+    for name, g, r in zip(("x", "dt", "a_neg", "b", "c"), got, want):
+        torch.testing.assert_close(g.cpu(), r, rtol=1e-5, atol=1e-5 * float(r.abs().max()),
+                                   msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunk_refuses_bad_operands(cuda_device):
+    from repro_torch.kernels import ssd_scan as tssd
+
+    x, dt, a, b, c = _ssd_inputs(2, 32, 2, 8, 8, cuda_device)
+    xc, dtc, bc, cc = tssd.to_chunks(x, dt, b, c, 32)
+    a2 = a.expand(2, 2)
+    with pytest.raises(ValueError, match="one device"):
+        tssd.ssd_chunk(xc, dtc, a2.cpu(), bc, cc)
+    with pytest.raises(ValueError, match="contiguous"):
+        tssd.ssd_chunk(xc, dtc, a2, bc.transpose(2, 3).contiguous().transpose(2, 3), cc)
+    with pytest.raises(ValueError, match="float32"):
+        tssd.ssd_chunk(xc.to(torch.bfloat16), dtc, a2, bc, cc)

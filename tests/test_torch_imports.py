@@ -45,6 +45,17 @@ def test_port_calls_no_library_attention_or_compiler():
     assert not bad, bad
 
 
+def test_port_imports_no_finished_ssd_kernels():
+    """K7 is the port's own kernel: no module of the port imports a package
+    of finished SSD or selective-scan kernels."""
+    banned = ("mamba_ssm", "causal_conv1d", "selective_scan", "flash_attn")
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert ROOT / "src" / "repro_torch" / "kernels" / "ssd_scan.py" in files
+    bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
+           for f in files for mod, line in _imported_roots(f) if mod in banned]
+    assert not bad, bad
+
+
 def test_cuda_request_without_a_card_raises():
     from repro_torch.device import resolve_device
 
