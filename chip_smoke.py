@@ -8,18 +8,24 @@ Phases, in order; any failure raises and the script exits nonzero:
   1. Device and build: the card's name and power limit (nvidia-smi), then
      the sm_90a builds, from src/repro_torch/kernels/csrc/, of the fused
      HeteRo-Select kernels K1–K4 (score_select.cu), the flash-attention
-     kernel K5 (flash_attention.cu) and the SSD chunk kernel K7
-     (ssd_scan.cu), one nvcc each, started together, with their ptxas
-     reports.
+     kernel K5 (flash_attention.cu), the grouped matmul K6 (moe_gmm.cu) and
+     the SSD chunk kernel K7 (ssd_scan.cu), one nvcc each, started together,
+     with their ptxas reports.
   2. Kernels against their plain PyTorch versions on the card, f32 and bf16
      state, staleness override off and on: K1 + K2 for K ∈ {12, 4133, 2^20}
      and m ∈ {6, 64, 1024} (m ≤ K), selected sets equal; K3 for the same K;
      K4 for the edge layouts in K4_CASES, padding slots exactly 0.0. Scores
      and probabilities must agree to 1e-5 relative. K5 for the cases in
      FLASH_CASES (f32 and bf16, causal and not, window 256, GQA 14/2 and
-     MHA at D = 64, S = T ∈ {32, 1000, 4096}, D = 256): f32 outputs to 1e-5
-     relative (1e-6 absolute), bf16 outputs within one bf16 ulp of the plain
-     version's plus 1e-6, the log-sum-exp to 1e-5. K7 for the cases in
+     MHA at D = 64, S = T ∈ {32, 1000, 4096}, D = 256, and kimi-k2's 64/8
+     heads of D = 112): f32 outputs to 1e-5 relative (1e-6 absolute), bf16
+     outputs within one bf16 ulp of the plain version's plus 1e-6, the
+     log-sum-exp to 1e-5. K6 for the cases in GMM_CASES (phase 7's folded
+     launches, gate/up and down, per-client, shared and transposed weights;
+     the eval's unfolded launch; empty groups, one group with every row and
+     rows past the last group; bf16 and f32): the rows that are 0 the same
+     rows, bf16 within one bf16 ulp plus 1e-5 of the largest output, f32 to
+     1e-5 relative plus 1e-5 of the largest (summation order only). K7 for the cases in
      SSD_CASES (f32): y_intra, states and cum_last to 1e-5 relative plus
      1e-5 of the largest entry; and ops.ssd_forward through K7 against the
      plain sequential recurrence to 1e-4 (relative and of the largest
@@ -27,7 +33,9 @@ Phases, in order; any failure raises and the script exits nonzero:
      around back-to-back calls (what a caller waits, host dispatch included)
      and torch.profiler's device time; K5 also beside torch's
      scaled_dot_product_attention on the same inputs (a yardstick only: the
-     port never calls it).
+     port never calls it); K6 beside torch._grouped_mm, where torch has it,
+     on the same rows in groups and weights (likewise never called by the
+     port).
   3. The flat main path at full width: Algorithm 1 sync/flat with
      selector="heterosel_pallas" on ResNet-18 (d_model 64, 32×32×3, 10
      classes), K = 12, m = 6, 3 rounds of 4 local steps, batched executor.
@@ -56,7 +64,18 @@ Phases, in order; any failure raises and the script exits nonzero:
      and K7 48 × (3 + 1) = 192 times, no K5, and select the plain versions'
      cohort; one eval forward through K7 is held against the same forward
      through K7's plain version.
-  7. A JSON line of per-kernel numbers, then the result line.
+  7. The same federated LM setup on one device's share of kimi-k2-1t-a32b:
+     every published width (d_model 7168, 64 query and 8 KV heads of 112,
+     expert d_ff 2048, the router over all 384 experts, top-8), the weights
+     of experts 0–7 of 384 (one of 48 devices of an expert-parallel
+     deployment), 20 480 of the 163 840 vocabulary rows, 2 layers (see
+     MOE_SHARE). Each round must launch K1 and K2 once, K5 2 × (3 + 1) = 8
+     times and K6 2 × (3 × (3 + 3) + 3) = 42 times (three grouped products
+     per layer per forward and three dX products per backward, each one
+     launch for the whole vmapped cohort; none for dW), no K7, and select
+     the plain versions' cohort; one eval forward through K6 is held against
+     the same forward through K6's plain version.
+  8. A JSON line of per-kernel numbers, then the result line.
 
 It needs one card, imports nothing of JAX or of the reference package, and
 exits nonzero without printing a result when torch sees no CUDA device.
@@ -102,8 +121,10 @@ FLASH_CASES = (("path", 32, 32, 32, 14, 2, 64, True, 0),
                ("T=1000 window 256", 1, 1000, 1000, 14, 2, 64, True, 256),
                ("prefill 4096", 1, 4096, 4096, 14, 2, 64, True, 0),
                ("MHA T=1000", 2, 1000, 1000, 14, 14, 64, True, 0),
-               ("D=256", 1, 300, 300, 4, 2, 256, True, 0))
-FLASH_TIMED = ("path", "prefill 4096")
+               ("D=256", 1, 300, 300, 4, 2, 256, True, 0),
+               ("kimi path", 32, 32, 32, 64, 8, 112, True, 0),
+               ("D=112 T=1000", 1, 1000, 1000, 64, 8, 112, True, 0))
+FLASH_TIMED = ("path", "prefill 4096", "kimi path")
 # Dense peaks of one H100 SXM (NVIDIA data sheet): bf16 inputs on the tensor
 # cores, which accumulate in f32, so K5's f32 state does not force the CUDA
 # cores; f32 inputs have no tensor-core path with TF32 off.
@@ -128,6 +149,25 @@ SSD_FORWARD_RTOL = 1e-4
 SSM_SEQ = 128
 LM_ROUNDS = 3
 LM_STEPS = 3
+# Phase 7's cut of kimi-k2-1t-a32b (registry.expert_share): 8 of the 384
+# experts, 20 480 of the 163 840 vocabulary rows, 2 of the 61 layers; every
+# width as published. 1 234 996 224 params, 2.48 GB.
+MOE_SHARE = dict(experts_here=8, first_expert=0, vocab_size=20480, num_layers=2)
+# K6 cases: (name, clients, rows per client, K, N, groups, rhs, sizes). The
+# "path" sizes are drawn as the share routes phase 7's tokens: each client's
+# rows are its 8 × 32 tokens' top-8 pairs over 384 experts, ~1/48 of them to
+# the 8 here and the rest past the last group. "path gate" and "path down"
+# are phase 7's folded launches (4 clients × 8 experts; per-client weights
+# after the first local step, shared weights on it), "down dX" the backward
+# of the down product (dY @ w_downᵀ through a transposed view), "eval gate"
+# the eval's unfolded launch (32 sequences of 32 tokens).
+GMM_CASES = (("path gate", 4, 2048, 7168, 2048, 8, "client", "path"),
+             ("path down", 4, 2048, 2048, 7168, 8, "shared", "path"),
+             ("down dX", 4, 2048, 7168, 2048, 8, "transposed", "path"),
+             ("eval gate", 1, 8192, 7168, 2048, 8, "shared", "path"),
+             ("ragged", 2, 1000, 256, 384, 4, "client", [[0, 1000, 0, 0], [300, 0, 500, 0]]))
+GMM_F32 = ("path gate", "ragged")
+GMM_TIMED = ("path gate", "path down", "eval gate")
 
 
 def nvidia_smi() -> str:
@@ -607,21 +647,139 @@ def phase_ssd(dev):
     return err, fwd_err, timings
 
 
+def gmm_inputs(case, dtype, dev, seed=0):
+    """xs (C·R, K), rhs (as the case lays it out) and group_sizes (C, G) of a
+    K6 case, on the card; the path's sizes drawn with numpy from ``seed``."""
+    import torch
+
+    name, c, r, k, n, g, layout, sizes = case
+    if sizes == "path":
+        rng = np.random.default_rng(seed)
+        sizes = [rng.multinomial(r, np.full(384, 1 / 384))[:g].tolist() for _ in range(c)]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.randn(c * r, k, generator=gen, device=dev).to(dtype)
+    if layout == "transposed":
+        rhs = torch.randn(c, g, n, k, generator=gen, device=dev).to(dtype).transpose(-1, -2)
+    else:
+        rhs = torch.randn(c, g, k, n, generator=gen, device=dev).to(dtype)
+        if layout == "shared":
+            rhs = rhs[0]
+    return xs, rhs, torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+
+def gmm_work(case, sizes, itemsize: int):
+    """(bytes, flops) K6 must spend on a case: the rows in groups read once,
+    the weights of every (client, expert) with a row read once (shared
+    weights once for all clients), every output row written once (0 past the
+    last group), the sizes read; 2·K·N flops per row in a group."""
+    _, c, r, k, n, g, layout, _ = case
+    s = np.asarray(sizes.cpu())
+    rows = int(s.sum())
+    mats = int((s.sum(0) > 0).sum()) if layout == "shared" else int((s > 0).sum())
+    nbytes = (rows * k + mats * k * n + c * r * n) * itemsize + 4 * s.size
+    return nbytes, 2 * rows * k * n
+
+
+def grouped_mm_yardstick(xs, rhs, sizes, want):
+    """torch._grouped_mm on K6's rows in groups and weights, where torch has
+    it: (callable, its largest gap to K6's rows), or (None, reason). Never
+    on the port's path."""
+    import torch
+
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "torch has no _grouped_mm"
+    c, g = sizes.shape
+    r = xs.shape[0] // c
+    in_group = (torch.arange(r, device=xs.device)[None, :] < sizes.sum(1, keepdim=True)).reshape(-1)
+    rows = xs[in_group].contiguous()
+    mats = (rhs.expand(c, *rhs.shape) if rhs.dim() == 3 else rhs).reshape(c * g, *rhs.shape[-2:])
+    mats = mats.contiguous()
+    offs = torch.cumsum(sizes.reshape(-1), 0).to(torch.int32)
+    try:
+        fn = lambda: torch._grouped_mm(rows, mats, offs=offs)
+        gap = float((fn().float() - want[in_group].float()).abs().max())
+    except Exception as exc:   # a yardstick only: record why it did not run
+        return None, f"{type(exc).__name__}: {str(exc)[:200]}"
+    return fn, gap
+
+
+def phase_gmm(dev):
+    """Phase 2, K6: every case against the plain version, then the timings.
+    Returns K6's largest error and the rows."""
+    import torch
+    from repro_torch.kernels import moe_gmm as tgmm
+
+    err = 0.0
+    ncases = 0
+    for case in GMM_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            if dtype == torch.float32 and case[0] not in GMM_F32:
+                continue
+            xs, rhs, sizes = gmm_inputs(case, dtype, dev)
+            got = tgmm.grouped_matmul_fwd(xs, rhs, sizes)
+            want = tgmm.gmm_plain_clients(xs, rhs, sizes)
+            where = f"K6 {case[0]} {dtype}"
+            if not torch.equal((got == 0).all(1), (want == 0).all(1)):
+                raise AssertionError(f"{where}: the rows that are 0 differ")
+            top = float(want.float().abs().max())
+            if dtype == torch.bfloat16:
+                e = check_within_bf16_ulp(where, got, want, atol=1e-5 * top)
+            else:
+                e = check_close(where, got, want, atol=1e-5 * top)
+            err = max(err, e)
+            ncases += 1
+    torch.cuda.synchronize()
+    print(f"phase 2: {ncases} K6 cases, kernel == plain (zero rows equal; bf16 within 1 ulp "
+          f"+ 1e-5 of the max, f32 rtol {RTOL} + 1e-5 of the max); max abs err {err:.3e}",
+          flush=True)
+
+    timings = []
+    for case in (c for c in GMM_CASES if c[0] in GMM_TIMED):
+        xs, rhs, sizes = gmm_inputs(case, torch.bfloat16, dev, seed=1)
+        kern = lambda: tgmm.grouped_matmul_fwd(xs, rhs, sizes)
+        plain = lambda: tgmm.gmm_plain_clients(xs, rhs, sizes)
+        s = sizes.cpu().numpy()
+        row = {"case": case[0], "C": case[1], "R": case[2], "K": case[3], "N": case[4],
+               "G": case[5], "rhs": case[6], "rows_in_groups": int(s.sum()),
+               "max_group": int(s.max())}
+        row["k6_ms"] = time_ms(kern, 20)
+        row["k6_plain_ms"] = time_ms(plain, 3)
+        row["k6_device_ms"] = device_ms(kern, "gmm_bf16_kernel")
+        row["k6_plain_device_ms"] = device_ms(plain, None, iters=3)
+        lib, note = grouped_mm_yardstick(xs, rhs, sizes, kern())
+        if lib is None:
+            row.update(k6_library_ms=None, k6_library_note=note)
+        else:
+            row.update(k6_library_ms=time_ms(lib, 20),
+                       k6_library_device_ms=device_ms(lib, None),
+                       library_max_abs_diff=note)
+        nbytes, flops = gmm_work(case, sizes, 2)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        row.update(bytes=nbytes, flops=flops, k6_bound_ms=max(t_bytes, t_ops),
+                   k6_bound_by="bytes" if t_bytes >= t_ops else "operations")
+        timings.append(row)
+        print("timing " + json.dumps(row), flush=True)
+    return err, timings
+
+
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count, by kernel name."""
     from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import moe_gmm as tgmm
     from repro_torch.kernels import score_select as tss
     from repro_torch.kernels import ssd_scan as tssd
 
-    return {**tss.LAUNCHES, **tfa.LAUNCHES, **tssd.LAUNCHES}
+    return {**tss.LAUNCHES, **tfa.LAUNCHES, **tgmm.LAUNCHES, **tssd.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import moe_gmm as tgmm
     from repro_torch.kernels import score_select as tss
     from repro_torch.kernels import ssd_scan as tssd
 
-    for module in (tss, tfa, tssd):
+    for module in (tss, tfa, tgmm, tssd):
         module.reset_launches()
 
 
@@ -693,7 +851,7 @@ def phase_main_path(dev):
 
     if launches != {"score_stats": fed.rounds, "score_select": fed.rounds,
                     "score_probs": 0, "segment_probs": 0, "flash_attention": 0,
-                    "ssd_chunk": 0}:
+                    "grouped_matmul": 0, "ssd_chunk": 0}:
         raise AssertionError(f"main path launches {launches}, want {fed.rounds} "
                              "of K1 and K2")
     if not np.all(np.isfinite(res.train_loss)):
@@ -803,7 +961,8 @@ def phase_hierarchy(dev, err: dict):
     launches = launch_counts()
 
     if launches != {"score_stats": 0, "score_select": 0, "score_probs": 0,
-                    "segment_probs": fed.rounds, "flash_attention": 0, "ssd_chunk": 0}:
+                    "segment_probs": fed.rounds, "flash_attention": 0,
+                    "grouped_matmul": 0, "ssd_chunk": 0}:
         raise AssertionError(f"hierarchical path launches {launches}, want "
                              f"{fed.rounds} of K4 and nothing else")
     if not np.all(np.isfinite(res.train_loss)):
@@ -843,6 +1002,21 @@ def ssd_chunk_plain_f64(x, dt, a_neg, b, c):
     return tuple(o.float() for o in out)
 
 
+def gmm_plain_f64(xs, rhs, group_sizes, *, block_m):
+    """K6's plain version summed in f64 and rounded once to xs's dtype, client
+    by client as ``gmm_plain_clients``: the same function with other
+    rounding (the floor of phase 7's eval check)."""
+    import torch
+    from repro_torch.kernels import moe_gmm as tgmm
+
+    sizes = group_sizes.reshape(-1, rhs.shape[-3])
+    rows = xs.shape[0] // sizes.shape[0]
+    return torch.cat([
+        tgmm.gmm_plain(xs[c * rows:(c + 1) * rows].double(),
+                       (rhs[c] if rhs.dim() == 4 else rhs).double(), sizes[c],
+                       block_m=block_m).to(xs.dtype) for c in range(sizes.shape[0])])
+
+
 @contextlib.contextmanager
 def plain_version(kernel: str, plain=None):
     """Within this block the named kernel's autograd.Function takes its plain
@@ -850,10 +1024,12 @@ def plain_version(kernel: str, plain=None):
     kernel against the same forward without it. The port's own path never
     does this."""
     from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import moe_gmm as tgmm
     from repro_torch.kernels import ssd_scan as tssd
 
     module, attr, default = {
         "flash_attention": (tfa, "flash_attention_fwd", tfa.flash_attention_plain),
+        "grouped_matmul": (tgmm, "grouped_matmul_fwd", tgmm.gmm_plain_clients),
         "ssd_chunk": (tssd, "ssd_chunk", tssd.ssd_chunk_plain)}[kernel]
     plain = plain or default
     saved = getattr(module, attr)
@@ -864,13 +1040,17 @@ def plain_version(kernel: str, plain=None):
         setattr(module, attr, saved)
 
 
-def phase_lm(dev, phase: int, arch: str, seq_len: int, kernel: str):
-    """Phases 5 and 6: the federated LM path on a full-width ``arch`` through
-    K1, K2 and the model's own kernel (K5 for qwen2, K7 for mamba2); returns
-    the path's launch counts and the eval logits' largest gap between the
-    kernel and its plain version."""
+def phase_lm(dev, phase: int, cfg, seq_len: int, per_layer: dict, kernel: str,
+             plain_f64=None):
+    """Phases 5–7: the federated LM path on the full-width ``cfg`` through
+    K1, K2 and the model's own kernels (K5 for qwen2, K7 for mamba2, K5 and
+    K6 for the kimi-k2 share), ``per_layer`` launches of each per layer per
+    round; returns the path's launch counts and the eval logits' largest gap
+    between ``kernel`` and its plain version. With ``plain_f64`` (the plain
+    version with other rounding) the allowed gap is at least twice the gap
+    that opens between it and the plain version."""
     import torch
-    from repro_torch.configs import FedConfig, get_config
+    from repro_torch.configs import FedConfig
     from repro_torch.core.scoring import HeteRoScoreConfig
     from repro_torch.core.selection import (SelectorConfig, dynamic_temperature,
                                             gumbel_noise)
@@ -881,22 +1061,19 @@ def phase_lm(dev, phase: int, arch: str, seq_len: int, kernel: str):
     from repro_torch.kernels import score_select as tss
     from repro_torch.models import build_model
 
-    cfg = get_config(arch)
+    arch = cfg.name
     fed = FedConfig(num_clients=8, participation=0.5, rounds=LM_ROUNDS, local_epochs=1,
                     local_batch=8, lr=0.05, mu=0.1, seed=0)
     m = fed.num_selected
     data = make_lm_data(fed, vocab=cfg.vocab_size, seq_len=seq_len)
     model = build_model(cfg)
     n_params = sum(math.prod(p.shape) for p in model.module.parameters())
-    # The design's count: one launch of the model's kernel per layer per local
-    # step for the whole vmapped cohort (the vmap rule folds the clients into
-    # the batch), none in the backward (plain PyTorch), and one per layer in
-    # the eval forward.
-    per_round = cfg.num_layers * (LM_STEPS + 1)
     want_round = {n: 0 for n in launch_counts()}
-    want_round.update(score_stats=1, score_select=1, **{kernel: per_round})
-    print(f"phase {phase}: {arch}, {n_params} params, seq {seq_len}, predicted {kernel} "
-          f"launches per round {cfg.num_layers} x ({LM_STEPS} + 1) = {per_round}", flush=True)
+    want_round.update(score_stats=1, score_select=1,
+                      **{k: cfg.num_layers * c for k, c in per_layer.items()})
+    print(f"phase {phase}: {arch}, {n_params} params, seq {seq_len}, predicted launches "
+          f"per round " + ", ".join(f"{k} {cfg.num_layers} x {c} = {cfg.num_layers * c}"
+                                    for k, c in per_layer.items()), flush=True)
 
     noise_gen = torch.Generator(device=dev).manual_seed(fed.seed)
     drawn = {}
@@ -967,9 +1144,9 @@ def phase_lm(dev, phase: int, arch: str, seq_len: int, kernel: str):
     # bf16 layers carry a 1-ulp rounding difference of one activation onward.
     # K5 (24 layers): logits within 4 bf16 ulp of the largest (on the CPU,
     # reordering K5's plain sums moved qwen2 logits by 1.3 ulp). K7 (48
-    # layers): within 4 ulp or twice the floor, the gap that the plain K7
-    # computed in f64 (a rounding-level change of the same function) opens
-    # against the plain K7 in f32.
+    # layers) and K6: within 4 ulp or twice the floor, the gap that the plain
+    # version computed in f64 (a rounding-level change of the same function)
+    # opens against the plain version.
     batch = {k: v.to(dev) for k, v in data.eval_batch().items()}
 
     def eval_logits(*plain):
@@ -986,8 +1163,8 @@ def phase_lm(dev, phase: int, arch: str, seq_len: int, kernel: str):
     gap = float((logits_k - logits_p).abs().max())
     top = float(bf16_ulp(logits_p.abs().max()))
     allowed, floor = 4 * top, None
-    if kernel == "ssd_chunk":
-        floor = float((eval_logits(ssd_chunk_plain_f64)[0] - logits_p).abs().max())
+    if plain_f64 is not None:
+        floor = float((eval_logits(plain_f64)[0] - logits_p).abs().max())
         allowed = max(allowed, 2 * floor)
     if not gap <= allowed or abs(loss_k - loss_p) > 1e-3 * abs(loss_p):
         raise AssertionError(f"eval logits through {kernel} vs plain: max gap {gap:.3e} "
@@ -1005,7 +1182,8 @@ def phase_lm(dev, phase: int, arch: str, seq_len: int, kernel: str):
              if floor is not None else ""), flush=True)
     print(f"  labeled_summary {json.dumps(res.labeled_summary())}", flush=True)
     print(f"  train_loss {res.train_loss.tolist()}", flush=True)
-    print(f"  params {n_params}  max_memory_allocated {peak} bytes", flush=True)
+    print(f"  params {n_params}  max_memory_allocated {peak} bytes"
+          + (f"  ({cfg.expert_deployment})" if cfg.family == "moe" else ""), flush=True)
     print(f"  launches {json.dumps(launches)}", flush=True)
 
     # Where the time goes, outside the counted run: one more cohort call (the
@@ -1022,6 +1200,17 @@ def phase_lm(dev, phase: int, arch: str, seq_len: int, kernel: str):
             prof["kernel_launches_per_local_step"] = prof["kernel_launches"] / LM_STEPS
         print(f"  profile {what}: " + json.dumps(prof), flush=True)
     return launches, gap
+
+
+def release(dev) -> None:
+    """Free what the last phase left cached, so each path's peak is its own."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
 
 
 def profile_phase(fn, top: int = 10) -> dict:
@@ -1059,6 +1248,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    from repro_torch.configs import expert_share, get_config
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
 
@@ -1070,7 +1260,7 @@ def main() -> int:
           f"capability {torch.cuda.get_device_capability(0)}", flush=True)
 
     t0 = time.perf_counter()
-    sources = ("score_select", "flash_attention", "ssd_scan")
+    sources = ("score_select", "flash_attention", "moe_gmm", "ssd_scan")
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc each, together
         builds = list(pool.map(_build.build, sources))
     for built in builds:
@@ -1080,10 +1270,27 @@ def main() -> int:
 
     err, timings = phase_kernels(dev)
     flash_err, flash_timings = phase_flash(dev)
+    gmm_err, gmm_timings = phase_gmm(dev)
     ssd_err, ssd_fwd_err, ssd_timings = phase_ssd(dev)
     paths = {"flat": phase_main_path(dev), "hierarchical": phase_hierarchy(dev, err)}
-    paths["lm"], lm_gap = phase_lm(dev, 5, "qwen2-0.5b", 32, "flash_attention")
-    paths["ssm"], ssm_gap = phase_lm(dev, 6, "mamba2-370m", SSM_SEQ, "ssd_chunk")
+    # Per layer per round: one launch per local step and one in the eval
+    # (the vmap rules fold the cohort into one launch; K5's and K7's
+    # backwards are plain PyTorch). K6: three grouped products per forward
+    # and three dX products per backward (dW is plain PyTorch).
+    per_layer = {"flash_attention": LM_STEPS + 1, "ssd_chunk": LM_STEPS + 1,
+                 "grouped_matmul": LM_STEPS * (3 + 3) + 3}
+    paths["lm"], lm_gap = phase_lm(dev, 5, get_config("qwen2-0.5b"), 32,
+                                   {"flash_attention": per_layer["flash_attention"]},
+                                   "flash_attention")
+    release(dev)
+    paths["ssm"], ssm_gap = phase_lm(dev, 6, get_config("mamba2-370m"), SSM_SEQ,
+                                     {"ssd_chunk": per_layer["ssd_chunk"]}, "ssd_chunk",
+                                     plain_f64=ssd_chunk_plain_f64)
+    release(dev)
+    paths["moe"], moe_gap = phase_lm(
+        dev, 7, expert_share(get_config("kimi-k2-1t-a32b"), **MOE_SHARE), 32,
+        {k: per_layer[k] for k in ("flash_attention", "grouped_matmul")}, "grouped_matmul",
+        plain_f64=gmm_plain_f64)
 
     def launches(name):
         by_path = {p: counts[name] for p, counts in paths.items()}
@@ -1129,6 +1336,19 @@ def main() -> int:
         "bound_ms": main_row["k5_bound_ms"], "bound_by": main_row["k5_bound_by"],
         "library_ms": main_row["k5_library_ms"],   # scaled_dot_product_attention
         "shapes": flash_timings,
+    })
+    main_row = next(r for r in gmm_timings if r["case"] == "path gate")
+    kernels.append({
+        "name": "grouped_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm.py:32",
+        **launches("grouped_matmul"),
+        "max_abs_err": gmm_err,
+        "moe_eval_logit_gap": moe_gap,
+        "ms": main_row["k6_ms"], "plain_ms": main_row["k6_plain_ms"],
+        "bound_ms": main_row["k6_bound_ms"], "bound_by": main_row["k6_bound_by"],
+        "library_ms": main_row["k6_library_ms"],   # torch._grouped_mm, where it exists
+        "shapes": gmm_timings,
     })
     main_row = next(r for r in ssd_timings if r["case"] == "path")
     kernels.append({

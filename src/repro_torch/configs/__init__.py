@@ -1,6 +1,7 @@
-"""Configs: model architecture and federated setup (resnet, dense and ssm families)."""
+"""Configs: model architecture and federated setup (resnet, dense, ssm and moe families)."""
 
-from repro_torch.configs.base import FedConfig, ModelConfig
-from repro_torch.configs.registry import get_config, smoke_variant
+from repro_torch.configs.base import ExpertShareConfig, FedConfig, ModelConfig
+from repro_torch.configs.registry import expert_share, get_config, smoke_variant
 
-__all__ = ["FedConfig", "ModelConfig", "get_config", "smoke_variant"]
+__all__ = ["ExpertShareConfig", "FedConfig", "ModelConfig", "expert_share", "get_config",
+           "smoke_variant"]

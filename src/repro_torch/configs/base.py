@@ -1,8 +1,9 @@
 """Config dataclasses: model architecture and federated setup.
 
 Plain frozen dataclasses, as in ``repro.configs.base``. Only the fields the
-ported families (resnet, dense, ssm) and the sync engines (flat and
-hierarchical) read are carried over.
+ported families (resnet, dense, ssm, moe) and the sync engines (flat and
+hierarchical) read are carried over. ``ExpertShareConfig`` is the port's
+own: one device's share of an MoE config's experts.
 """
 
 from __future__ import annotations
@@ -31,6 +32,9 @@ class ModelConfig:
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     sliding_window: int = 0           # 0 ⇒ full attention
+    # MoE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
     # SSM (mamba2)
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -51,12 +55,43 @@ class ModelConfig:
         return int(math.ceil(self.vocab_size / VOCAB_PAD) * VOCAB_PAD)
 
     @property
+    def expert_range(self) -> range:
+        """The experts whose weights this config holds: all of them."""
+        return range(self.num_experts)
+
+    @property
+    def expert_deployment(self) -> str:
+        """The deployment the experts held here stand for, in words."""
+        here, e = self.expert_range, self.num_experts
+        if len(here) == e:
+            return f"all {e} experts on one device"
+        return (f"experts {here.start}-{here.stop - 1} of {e}: one device's share "
+                f"of {e} experts over {e // len(here)} devices, {len(here)} each")
+
+    @property
     def d_inner(self) -> int:  # mamba2 inner width
         return self.ssm_expand * self.d_model
 
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_headdim
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertShareConfig(ModelConfig):
+    """One device's share of an MoE config (``registry.expert_share``):
+    experts [first_expert, first_expert + experts_here) hold weights here,
+    the router still scores all ``num_experts`` and routes top-k over them,
+    and a token's pairs with an absent expert add nothing (that device's
+    part is not computed). The per-shard expert set of the reference's
+    expert-parallel layer (``_moe_ffn_a2a``), run without its all-to-all."""
+
+    experts_here: int = 0
+    first_expert: int = 0
+
+    @property
+    def expert_range(self) -> range:
+        return range(self.first_expert, self.first_expert + self.experts_here)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,9 +3,9 @@
 The reference keeps params as a nested dict of arrays; the port keeps a
 flat dict keyed by dotted paths of the same names (``stem``,
 ``block3.conv1``, …, ``fc_w`` for the resnet; ``embed.tok_embed``,
-``layers.attn.wq``, …, ``final_norm`` for the dense decoder). The resnet's
+``layers.attn.wq``, …, ``final_norm`` for the LM families). The resnet's
 conv kernels, and only they, change layout: HWIO there, OIHW here. Every
-other leaf, the dense family's stacked 4-D attention weights included, is
+other leaf, the stacked 4-D attention and expert weights included, is
 carried as it is. Both directions copy values bitwise; bf16 leaves travel
 as their 16-bit patterns (numpy's bf16 is ``ml_dtypes.bfloat16``, imported
 only when such a leaf goes back to the reference layout).
@@ -71,3 +71,16 @@ def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[leaf] = a
     return tree
+
+
+_EXPERT_LEAVES = ("layers.moe.w_gate", "layers.moe.w_up", "layers.moe.w_down")
+
+
+def expert_share_params(params: Dict[str, torch.Tensor], *, experts_here: int,
+                        first_expert: int = 0) -> Dict[str, torch.Tensor]:
+    """An MoE model's params with every expert's weights cut to one device's
+    share, experts [first_expert, first_expert + experts_here) of the stacked
+    (L, E, …) expert leaves; the router and every other leaf as they are."""
+    share = slice(first_expert, first_expert + experts_here)
+    return {name: p[:, share].clone() if name in _EXPERT_LEAVES else p
+            for name, p in params.items()}

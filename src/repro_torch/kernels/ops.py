@@ -1,4 +1,4 @@
-"""Public wrappers around the hand-written kernels (K1–K5, K7)."""
+"""Public wrappers around the hand-written kernels (K1–K7)."""
 
 from __future__ import annotations
 
@@ -7,6 +7,7 @@ import torch
 from repro_torch.core.scoring import HeteRoScoreConfig
 from repro_torch.core.state import ClientState, score_inputs
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import score_select as _ss
 from repro_torch.kernels import ssd_scan as _ssd
 
@@ -20,6 +21,16 @@ def flash_mha(q, k, v, *, causal: bool = True, window: int = 0):
     vmappable (``kernels.flash_attention.FlashAttention``).
     """
     return _fa.FlashAttention.apply(q, k, v, causal, window)[0]
+
+
+def grouped_matmul(xs, rhs, group_sizes, *, block_m: int = _gmm.DEFAULT_BLOCK_M):
+    """Grouped matmul (K6), the reference's ``ragged_dot`` drop-in: xs (M, K)
+    rows sorted by group; rhs (G, K, N); group_sizes (G,) int32. Returns
+    (M, N) in xs.dtype, each row of group g times rhs[g] in f32 and rounded
+    once; rows past the last group are 0. Differentiable and vmappable
+    (``kernels.moe_gmm.GroupedMatmul``: a vmapped cohort is one launch).
+    """
+    return _gmm.GroupedMatmul.apply(xs, rhs, group_sizes, block_m)
 
 
 def ssd_forward(x, dt, a_neg, b_in, c_in, *, chunk: int = 256, h0=None):

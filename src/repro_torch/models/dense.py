@@ -22,9 +22,32 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (DEFAULT_DTYPE, Params, cross_entropy,
-                                       embed_tokens, flatten, gated_mlp,
-                                       init_embeddings, init_gated_mlp, meta_param,
-                                       rms_norm, split_layers, unembed)
+                                       embed_tokens, gated_mlp, init_gated_mlp,
+                                       init_lm_params, meta_param, rms_norm,
+                                       split_layers, unembed)
+
+
+def meta_decoder(module: nn.Module, cfg: ModelConfig) -> None:
+    """The weights a pre-norm attention decoder has whatever its FFN: the
+    embeddings, the stacked attention and norms, the final norm (on the meta
+    device, under ``module``)."""
+    L, d, hd = cfg.num_layers, cfg.d_model, cfg.resolved_head_dim
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    module.embed = nn.Module()
+    module.embed.tok_embed = meta_param(cfg.padded_vocab, d)
+    if not cfg.tie_embeddings:
+        module.embed.unembed = meta_param(d, cfg.padded_vocab)
+    module.layers = nn.Module()
+    module.layers.attn = nn.Module()
+    for name, shape in (("wq", (d, h, hd)), ("wk", (d, kvh, hd)),
+                        ("wv", (d, kvh, hd)), ("wo", (h, hd, d))):
+        setattr(module.layers.attn, name, meta_param(L, *shape))
+    if cfg.qkv_bias:
+        for name, heads in (("bq", h), ("bk", kvh), ("bv", kvh)):
+            setattr(module.layers.attn, name, meta_param(L, heads, hd))
+    module.layers.ln1 = meta_param(L, d, dtype=torch.float32)
+    module.layers.ln2 = meta_param(L, d, dtype=torch.float32)
+    module.final_norm = meta_param(d, dtype=torch.float32)
 
 
 class DenseLM(nn.Module):
@@ -32,27 +55,12 @@ class DenseLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        L, d, hd = cfg.num_layers, cfg.d_model, cfg.resolved_head_dim
-        h, kvh = cfg.num_heads, cfg.num_kv_heads
-        self.embed = nn.Module()
-        self.embed.tok_embed = meta_param(cfg.padded_vocab, d)
-        if not cfg.tie_embeddings:
-            self.embed.unembed = meta_param(d, cfg.padded_vocab)
-        self.layers = nn.Module()
-        self.layers.attn = nn.Module()
-        for name, shape in (("wq", (d, h, hd)), ("wk", (d, kvh, hd)),
-                            ("wv", (d, kvh, hd)), ("wo", (h, hd, d))):
-            setattr(self.layers.attn, name, meta_param(L, *shape))
-        if cfg.qkv_bias:
-            for name, heads in (("bq", h), ("bk", kvh), ("bv", kvh)):
-                setattr(self.layers.attn, name, meta_param(L, heads, hd))
+        meta_decoder(self, cfg)
+        L, d = cfg.num_layers, cfg.d_model
         self.layers.mlp = nn.Module()
         for name, shape in (("w_gate", (d, cfg.d_ff)), ("w_up", (d, cfg.d_ff)),
                             ("w_down", (cfg.d_ff, d))):
             setattr(self.layers.mlp, name, meta_param(L, *shape))
-        self.layers.ln1 = meta_param(L, d, dtype=torch.float32)
-        self.layers.ln2 = meta_param(L, d, dtype=torch.float32)
-        self.final_norm = meta_param(d, dtype=torch.float32)
 
 
 def init_layer(generator: torch.Generator, cfg: ModelConfig) -> Params:
@@ -68,16 +76,7 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
-    """Fresh weights on the generator's device, drawn as the reference draws
-    them (shapes, dtypes, distributions) from torch's stream."""
-    embed = init_embeddings(generator, cfg.padded_vocab, cfg.d_model, cfg.tie_embeddings)
-    layers = [flatten(init_layer(generator, cfg)) for _ in range(cfg.num_layers)]
-    params = flatten({"embed": embed})
-    params.update({f"layers.{k}": torch.stack([lp[k] for lp in layers])
-                   for k in layers[0]})
-    params["final_norm"] = torch.ones((cfg.d_model,), dtype=torch.float32,
-                                      device=generator.device)
-    return params
+    return init_lm_params(cfg, generator, init_layer)
 
 
 def _layer_body(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,

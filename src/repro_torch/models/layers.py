@@ -70,6 +70,21 @@ def split_layers(params: Params, num_layers: int) -> List[dict]:
     return lps
 
 
+def init_lm_params(cfg, generator: torch.Generator, init_layer) -> Params:
+    """Fresh LM weights on the generator's device, drawn as the reference
+    draws them (shapes, dtypes, distributions) from torch's stream: the
+    embeddings, ``init_layer(generator, cfg)`` once per layer stacked on a
+    leading (L, …) axis, and the final norm."""
+    embed = init_embeddings(generator, cfg.padded_vocab, cfg.d_model, cfg.tie_embeddings)
+    layers = [flatten(init_layer(generator, cfg)) for _ in range(cfg.num_layers)]
+    params = flatten({"embed": embed})
+    params.update({f"layers.{k}": torch.stack([lp[k] for lp in layers])
+                   for k in layers[0]})
+    params["final_norm"] = torch.ones((cfg.d_model,), dtype=torch.float32,
+                                      device=generator.device)
+    return params
+
+
 # ---------------------------------------------------------------------------
 # Group norm (resnet)
 # ---------------------------------------------------------------------------

@@ -33,8 +33,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (DEFAULT_DTYPE, Params, cross_entropy,
-                                       dense_init, einsum, embed_tokens, flatten,
-                                       init_embeddings, meta_param, rms_norm,
+                                       dense_init, einsum, embed_tokens,
+                                       init_lm_params, meta_param, rms_norm,
                                        split_layers, unembed)
 
 CONV_K = 4  # depthwise causal conv kernel width
@@ -90,16 +90,7 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
-    """Fresh weights on the generator's device, drawn as the reference draws
-    them (shapes, dtypes, distributions) from torch's stream."""
-    embed = init_embeddings(generator, cfg.padded_vocab, cfg.d_model, cfg.tie_embeddings)
-    layers = [flatten(init_layer(generator, cfg)) for _ in range(cfg.num_layers)]
-    params = flatten({"embed": embed})
-    params.update({f"layers.{k}": torch.stack([lp[k] for lp in layers])
-                   for k in layers[0]})
-    params["final_norm"] = torch.ones((cfg.d_model,), dtype=torch.float32,
-                                      device=generator.device)
-    return params
+    return init_lm_params(cfg, generator, init_layer)
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:

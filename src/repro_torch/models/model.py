@@ -6,8 +6,8 @@ Same surface as ``repro.models.model`` for the ported families:
   loss(params, batch)      → scalar f32 loss
   forward(params, batch)   → logits
 
-The resnet, dense and ssm (mamba2) families are ported; decode steps wait
-for the serving slice.
+The resnet, dense, ssm (mamba2) and moe families are ported; decode steps
+wait for the serving slice.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import dense, mamba2, resnet
+from repro_torch.models import dense, mamba2, moe, resnet
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +56,14 @@ def build_model(cfg: ModelConfig) -> Model:
             loss=lambda p, b: mamba2.loss_fn(cfg, p, b),
             forward=lambda p, b: mamba2.forward(cfg, p, b["tokens"]),
         )
+    if cfg.family == "moe":
+        return Model(
+            cfg=cfg,
+            module=moe.MoeLM(cfg),
+            init_params=lambda gen: moe.init_params(cfg, gen),
+            loss=lambda p, b: moe.loss_fn(cfg, p, b),
+            forward=lambda p, b: moe.forward(cfg, p, b["tokens"])[0],
+        )
     raise NotImplementedError(
-        f"model family '{cfg.family}' is not ported; only 'resnet', 'dense' and "
-        "'ssm' are")
+        f"model family '{cfg.family}' is not ported; only 'resnet', 'dense', 'ssm' "
+        "and 'moe' are")

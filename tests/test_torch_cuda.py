@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1–K5, K7) against their plain PyTorch versions, on
+"""The port's CUDA kernels (K1–K7) against their plain PyTorch versions, on
 the card.
 
 Every test here is marked ``cuda`` and skips when torch sees no device. The
@@ -14,7 +14,12 @@ bf16 ulp of the plain version's plus the same 1e-6: the kernel and the plain
 version sum the scores and p·v in other orders, so their f32 results differ
 by up to ~5e-7 where the p·v sum cancels to near 0 (measured on the CPU
 against f64), more than one bf16 ulp of such an output; each then rounds
-its f32 result to bf16 once.
+its f32 result to bf16 once. K6 likewise: bf16 outputs within one bf16 ulp
+of the plain version's plus 1e-5 of the largest output (the f32 sums of up
+to 7168 products differ by summation order, ~1e-4 at these sizes, more than
+one bf16 ulp of an output near 0), f32 outputs to 1e-5 relative plus 1e-5
+of the largest; the rows that are 0 (padding, rows past the last group) are
+the same rows, exactly 0.
 """
 
 import pytest
@@ -167,8 +172,10 @@ FLASH_CASES = [
     (2, 300, 300, 4, 4, 128, False, 0),    # MHA, non-causal
     (1, 100, 100, 2, 1, 256, True, 0),     # the largest head_dim
     (2, 20, 70, 4, 2, 16, False, 0),       # S < T, S smaller than a tile
+    (32, 32, 32, 64, 8, 112, True, 0),     # the kimi-k2 share's shape: D 112, a partial chunk
+    (1, 300, 300, 64, 8, 112, True, 0),    # D 112 with T-padding
 ]
-FLASH_IDS = ["path", "T1000", "window", "mha", "d256", "cross"]
+FLASH_IDS = ["path", "T1000", "window", "mha", "d256", "cross", "d112-path", "d112-T300"]
 
 
 def _bf16_ulp(x):
@@ -419,3 +426,109 @@ def test_cuda_ssd_chunk_refuses_bad_operands(cuda_device):
         tssd.ssd_chunk(xc, dtc, a2, bc.transpose(2, 3).contiguous().transpose(2, 3), cc)
     with pytest.raises(ValueError, match="float32"):
         tssd.ssd_chunk(xc.to(torch.bfloat16), dtc, a2, bc, cc)
+
+
+# ---------------------------------------------------------------------------
+# K6: grouped matmul
+# ---------------------------------------------------------------------------
+
+# (clients, rows, K, N, groups, sizes, block_m, shared rhs, transposed rhs).
+# "path-*" are the federated kimi-k2 share's launches: 4 clients x 8 experts
+# folded, ~5 of 2048 pair rows per (client, expert), the rest past the last
+# group; "down-dx" is the backward's dX through a transposed view.
+_PATH = [5, 6, 4, 7, 3, 5, 6, 7, 0, 9, 5, 5, 4, 6, 3, 2, 6, 6, 6, 6, 6, 6, 6, 6,
+         1, 0, 0, 40, 2, 3, 4, 5]
+GMM_CASES = [
+    (4, 2048, 7168, 2048, 8, _PATH, 128, False, False),
+    (4, 2048, 2048, 7168, 8, _PATH, 128, True, False),
+    (4, 2048, 7168, 2048, 8, _PATH, 128, False, True),
+    (1, 8192, 256, 384, 8, [1024] * 8, 128, False, False),
+    (1, 300, 72, 40, 4, [0, 300, 0, 0], 16, False, False),
+    (2, 100, 40, 24, 3, [40, 0, 50, 0, 0, 0], 8, False, False),
+]
+GMM_IDS = ["path-gate", "path-down-shared", "down-dx", "eval-all-rows", "one-group",
+           "ragged-past-last"]
+
+
+def _gmm_operands(case, dtype, dev, seed=0):
+    c, r, k, n, g, sizes, _, shared, trans = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.randn(c * r, k, generator=gen, device=dev).to(dtype)
+    if trans:
+        rhs = torch.randn(c, g, n, k, generator=gen, device=dev).to(dtype).transpose(-1, -2)
+    else:
+        rhs = torch.randn(c, g, k, n, generator=gen, device=dev).to(dtype)
+    if shared:
+        rhs = rhs[0]
+    return xs, rhs, torch.tensor(sizes, dtype=torch.int32, device=dev).reshape(c, g)
+
+
+def assert_gmm_close(got, want):
+    assert torch.equal((got == 0).all(1), (want == 0).all(1))
+    top = float(want.float().abs().max())
+    if got.dtype == torch.bfloat16:
+        gap = (got.float() - want.float()).abs()
+        assert bool((gap <= _bf16_ulp(want) + 1e-5 * top).all()), float(gap.max())
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", GMM_CASES, ids=GMM_IDS)
+def test_cuda_grouped_matmul_matches_plain(cuda_device, case, dtype):
+    from repro_torch.kernels import moe_gmm as tgmm
+
+    xs, rhs, sizes = _gmm_operands(case, dtype, cuda_device)
+    c, r, bm = case[0], case[1], case[6]
+    before = tgmm.LAUNCHES["grouped_matmul"]
+    got = tgmm.grouped_matmul_fwd(xs, rhs, sizes, block_m=bm)
+    torch.cuda.synchronize()
+    assert tgmm.LAUNCHES["grouped_matmul"] == before + 1
+    want = torch.cat([tgmm.gmm_plain(xs[i * r:(i + 1) * r], rhs if rhs.dim() == 3 else rhs[i],
+                                     sizes[i], block_m=bm) for i in range(c)])
+    assert got.dtype == dtype and got.shape == want.shape
+    assert_gmm_close(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_matmul_vmap_grad_is_one_launch_each_way(cuda_device):
+    """vmap∘grad over 4 clients on the card: one K6 launch for the cohort's
+    forward and one for its dX, and the gradients of the CPU path."""
+    from repro_torch.kernels import moe_gmm as tgmm
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    c, m, k, n, g = 4, 96, 64, 48, 3
+    xs = torch.randn(c, m, k, generator=gen, device=cuda_device)
+    rhs = torch.randn(c, g, k, n, generator=gen, device=cuda_device)
+    w = torch.randn(c, m, n, generator=gen, device=cuda_device)
+    sizes = torch.tensor([[30, 30, 36], [0, 90, 0], [10, 0, 20], [96, 0, 0]],
+                         dtype=torch.int32, device=cuda_device)
+
+    def loss(x, r, s, w):
+        return (ops.grouped_matmul(x, r, s, block_m=16) * w).sum()
+
+    grad = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1)))
+    before = tgmm.LAUNCHES["grouped_matmul"]
+    got = grad(xs, rhs, sizes, w)
+    torch.cuda.synchronize()
+    assert tgmm.LAUNCHES["grouped_matmul"] == before + 2
+    want = grad(xs.cpu(), rhs.cpu(), sizes.cpu(), w.cpu())
+    for name, a, b in zip(("dx", "drhs"), got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5 * float(b.abs().max()),
+                                   msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_matmul_refuses_bad_operands(cuda_device):
+    from repro_torch.kernels import moe_gmm as tgmm
+
+    xs = torch.zeros(16, 8, device=cuda_device)
+    rhs = torch.zeros(2, 8, 4, device=cuda_device)
+    sizes = torch.tensor([8, 8], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="one device"):
+        tgmm.grouped_matmul_fwd(xs, rhs, sizes.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        tgmm.gmm_cuda(torch.zeros(8, 16, device=cuda_device).t(), rhs, sizes)
+    with pytest.raises(ValueError, match="float32 or both bfloat16"):
+        tgmm.grouped_matmul_fwd(xs.to(torch.float16), rhs.to(torch.float16), sizes)

@@ -56,6 +56,23 @@ def test_port_imports_no_finished_ssd_kernels():
     assert not bad, bad
 
 
+def test_port_calls_no_library_grouped_matmul():
+    """K6 is the port's own kernel: no module of the port, and not
+    ``chip_smoke.py`` outside its yardstick timing, reaches PyTorch's grouped
+    matmul or a finished MoE kernel package."""
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    for name in ("kernels/moe_gmm.py", "models/moe.py", "kernels/ops.py"):
+        assert ROOT / "src" / "repro_torch" / name in files
+    banned = ("_grouped_mm", "grouped_mm(", "megablocks", "grouped_gemm")
+    bad = [f"{f.relative_to(ROOT)}: {word}" for f in files for word in banned
+           if word in f.read_text()]
+    assert not bad, bad
+    bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
+           for f in files + [ROOT / "chip_smoke.py"] for mod, line in _imported_roots(f)
+           if mod in ("megablocks", "grouped_gemm")]
+    assert not bad, bad
+
+
 def test_cuda_request_without_a_card_raises():
     from repro_torch.device import resolve_device
 
