@@ -29,7 +29,13 @@ Phases, in order; any failure raises and the script exits nonzero:
      SSD_CASES (f32): y_intra, states and cum_last to 1e-5 relative plus
      1e-5 of the largest entry; and ops.ssd_forward through K7 against the
      plain sequential recurrence to 1e-4 (relative and of the largest
-     entry). Then each kernel and its plain version are timed: CUDA events
+     entry). K8's offset: K = 2^20 (f32 and bf16) split into K8_WORLD
+     client shards of this process, K1 and K2 on each shard with its global
+     offset and limit against their plain versions with the same offset
+     (candidate ids exactly), and the shards merged by the collectives'
+     arithmetic on local tensors, which must select the single-device
+     fused cohort: the only world size above 1 one card can check. Then
+     each kernel and its plain version are timed: CUDA events
      around back-to-back calls (what a caller waits, host dispatch included)
      and torch.profiler's device time; K5 also beside torch's
      scaled_dot_product_attention on the same inputs (a yardstick only: the
@@ -59,8 +65,8 @@ Phases, in order; any failure raises and the script exits nonzero:
      cohort. Then one eval forward through K5 is held against the same
      forward through K5's plain version.
   6. The same federated LM setup on mamba2-370m with all 48 layers (368 M
-     params), at make_lm_data(seq_len=128) (see SSM_SEQ): each sequence
-     half of one 256-row SSD chunk. Each round must launch K1 and K2 once
+     params), at make_lm_data(seq_len=256) (see SSM_SEQ): each sequence
+     one 256-row SSD chunk. Each round must launch K1 and K2 once
      and K7 48 × (3 + 1) = 192 times, no K5, and select the plain versions'
      cohort; one eval forward through K7 is held against the same forward
      through K7's plain version.
@@ -74,8 +80,20 @@ Phases, in order; any failure raises and the script exits nonzero:
      per layer per forward and three dX products per backward, each one
      launch for the whole vmapped cohort; none for dW), no K7, and select
      the plain versions' cohort; one eval forward through K6 is held against
-     the same forward through K6's plain version.
-  8. A JSON line of per-kernel numbers, then the result line.
+     the same forward through K6's plain version. Phases 5–7 print their peak
+     memory beside the one recorded before the client visit stopped keeping
+     a graph of each backward and every leaf's f32 delta (PEAK_BEFORE).
+  8. The selection control plane at population scale, the reference's Table
+     8: K ∈ {10^3, 10^4, 10^5, 10^6}, m = K/1000, a bf16 client state; the
+     unfused heterosel, the fused K1 + K2 and the sharded K8 on a one-rank
+     NCCL group (made here) each select once at every K with the launch
+     counts zeroed before and read after; fused and sharded bitwise equal,
+     all three cohorts equal as sets; each timed (select_ms, device ms).
+  9. The paper's Table I on full-width ResNet-18: its five selectors
+     (heterosel, heterosel_mult, oort, power_of_choice, random) on phase 3's
+     federation, flat, TABLE1_ROUNDS rounds, the same draws for each; each
+     selector's peak, final, stability drop, select_ms and execute_ms.
+ 10. A JSON line of per-kernel numbers, then the result line.
 
 It needs one card, imports nothing of JAX or of the reference package, and
 exits nonzero without printing a result when torch sees no CUDA device.
@@ -131,7 +149,7 @@ FLASH_TIMED = ("path", "prefill 4096", "kimi path")
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # K7 cases: (name, B, S, CL, NH, HP, N). "path" is the shape K7 takes in
 # phase 6: a cohort of 4 clients × batch 8 (or 32 eval sequences), one
-# 256-row chunk (phase 6's 128 tokens padded, here 256 real ones),
+# 256-row chunk (phase 6's 256 tokens),
 # mamba2-370m's 32 heads of 64 and state 128.
 SSD_CASES = (("path", 32, 256, 256, 32, 64, 128),
              ("ragged", 3, 300, 128, 5, 64, 128),
@@ -139,14 +157,12 @@ SSD_CASES = (("path", 32, 256, 256, 32, 64, 128),
              ("prefill 4096", 1, 4096, 256, 32, 64, 128))
 SSD_TIMED = ("path", "prefill 4096")
 SSD_FORWARD_RTOL = 1e-4
-# Phase 6's sequence length. The example's 32 tokens would make K7 compute a
-# 256-row chunk (mamba2-370m's ssm_chunk) that is 7/8 padding; one full
-# chunk of 256 does not fit the card: torch.func.grad records every op's
-# backward (create_graph=True), ~1.5 GB per layer at 4 × 8 × 256 tokens, so
-# one 48-layer cohort step peaks at 77 GB and three run out of memory. At
-# 128 each sequence is half a chunk; K7 computes the padded half at the
-# same cost.
-SSM_SEQ = 128
+# Phase 6's sequence length: one full chunk of mamba2-370m's ssm_chunk. The
+# example's 32 tokens would make K7 compute a 256-row chunk that is 7/8
+# padding. While the client visit took its gradient with torch.func.grad
+# (which records every op's backward), a 48-layer cohort step needed 77 GB
+# at 256 and the phase ran at 128; the visit's vjp keeps no such graph.
+SSM_SEQ = 256
 LM_ROUNDS = 3
 LM_STEPS = 3
 # Phase 7's cut of kimi-k2-1t-a32b (registry.expert_share): 8 of the 384
@@ -168,6 +184,21 @@ GMM_CASES = (("path gate", 4, 2048, 7168, 2048, 8, "client", "path"),
              ("ragged", 2, 1000, 256, 384, 4, "client", [[0, 1000, 0, 0], [300, 0, 500, 0]]))
 GMM_F32 = ("path gate", "ragged")
 GMM_TIMED = ("path gate", "path down", "eval gate")
+# K8's offset check: K = 2^20 split into K8_WORLD client shards of one process.
+K8_CHECK = (1 << 20, 1024)           # (K, m)
+K8_WORLD = 4
+# Phase 8, the reference's Table 8 (benchmarks/table8_selector.py): K from
+# 10^3 to 10^6, m = max(round(10^-3·K), 1), round 7, a bf16 client state.
+TABLE8_KS = (1_000, 10_000, 100_000, 1_000_000)
+TABLE8_ROUND = 7
+# Phase 9, the paper's Table I: its five selectors on phase 3's federation.
+TABLE1_ROUNDS = 20
+# Peak memory of phases 5-7 before the client visit dropped the recorded
+# backward and the all-at-once f32 deltas (this script's run on an H100
+# 80GB HBM3 at 700 W, before that change): printed beside this run's.
+# By phase; phase 6 ran at seq 128 then (it needed 77 GB at 256).
+PEAK_BEFORE = {5: (20_444_054_016, 32), 6: (47_652_597_760, 128),
+               7: (48_821_506_048, 32)}
 
 
 def nvidia_smi() -> str:
@@ -770,7 +801,8 @@ def launch_counts() -> dict:
     from repro_torch.kernels import score_select as tss
     from repro_torch.kernels import ssd_scan as tssd
 
-    return {**tss.LAUNCHES, **tfa.LAUNCHES, **tgmm.LAUNCHES, **tssd.LAUNCHES}
+    return {**tss.LAUNCHES, **tss.SHARDED_LAUNCHES, **tfa.LAUNCHES, **tgmm.LAUNCHES,
+            **tssd.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -850,8 +882,8 @@ def phase_main_path(dev):
     launches = launch_counts()
 
     if launches != {"score_stats": fed.rounds, "score_select": fed.rounds,
-                    "score_probs": 0, "segment_probs": 0, "flash_attention": 0,
-                    "grouped_matmul": 0, "ssd_chunk": 0}:
+                    "score_probs": 0, "segment_probs": 0, "sharded_score_select": 0,
+                    "flash_attention": 0, "grouped_matmul": 0, "ssd_chunk": 0}:
         raise AssertionError(f"main path launches {launches}, want {fed.rounds} "
                              "of K1 and K2")
     if not np.all(np.isfinite(res.train_loss)):
@@ -961,8 +993,8 @@ def phase_hierarchy(dev, err: dict):
     launches = launch_counts()
 
     if launches != {"score_stats": 0, "score_select": 0, "score_probs": 0,
-                    "segment_probs": fed.rounds, "flash_attention": 0,
-                    "grouped_matmul": 0, "ssd_chunk": 0}:
+                    "segment_probs": fed.rounds, "sharded_score_select": 0,
+                    "flash_attention": 0, "grouped_matmul": 0, "ssd_chunk": 0}:
         raise AssertionError(f"hierarchical path launches {launches}, want "
                              f"{fed.rounds} of K4 and nothing else")
     if not np.all(np.isfinite(res.train_loss)):
@@ -1184,6 +1216,10 @@ def phase_lm(dev, phase: int, cfg, seq_len: int, per_layer: dict, kernel: str,
     print(f"  train_loss {res.train_loss.tolist()}", flush=True)
     print(f"  params {n_params}  max_memory_allocated {peak} bytes"
           + (f"  ({cfg.expert_deployment})" if cfg.family == "moe" else ""), flush=True)
+    before, before_seq = PEAK_BEFORE[phase]
+    print(f"  peak memory {peak} bytes at seq {seq_len}; before the visit kept no "
+          f"backward graph and one f32 delta at a time: {before} bytes at seq "
+          f"{before_seq} ({peak / before:.3f}x)", flush=True)
     print(f"  launches {json.dumps(launches)}", flush=True)
 
     # Where the time goes, outside the counted run: one more cohort call (the
@@ -1242,6 +1278,252 @@ def profile_phase(fn, top: int = 10) -> dict:
                         for e in ops[:top]]}
 
 
+def phase_k8_offsets(dev) -> float:
+    """Phase 2, K8's offset: K = 2^20 split into K8_WORLD client shards of
+    this process, f32 and bf16 state. K1 and K2 run on each shard with its
+    global offset and limit and are held against their plain versions with
+    the same offset (candidate ids exactly); then the shards are merged by
+    the collectives' arithmetic on local tensors
+    (``sharded_score_select_in_process``), and the merge must select the
+    single-device fused cohort. Returns the largest error."""
+    import torch
+    from repro_torch.core.scoring import HeteRoScoreConfig
+    from repro_torch.core.selection import SelectorConfig, dynamic_temperature
+    from repro_torch.kernels import score_select as tss
+
+    cfg = HeteRoScoreConfig()
+    t = 9
+    tau = dynamic_temperature(t, SelectorConfig())
+    (k, m), world = K8_CHECK, K8_WORLD
+    _, blk, _, _ = tss.shard_layout(k, world)
+    t_f, tau_f, decay = tss._scalars(t, tau, cfg)
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=dev).manual_seed(k + world)
+        rows = random_rows(k, dtype, gen, t)
+        gumbel = -torch.log(-torch.log(
+            torch.rand(k, generator=gen, device=dev).clamp_min(1e-38)))
+        for rank in range(world):
+            stacked, gpad, off, klim = tss.shard_operands(rows, gumbel, None, rank=rank,
+                                                          world=world)
+            where = f"K8 shard {rank} (off {off}, klim {klim}) {dtype}"
+            stats_k = tss.score_stats(stacked, k=klim, block=blk, off=off)
+            stats_p = tss.score_stats_plain(stacked, k=klim, block=blk, off=off)
+            err = max(err, check_close(f"{where} K1", stats_k, stats_p))
+            glob = tss._combine_stats(stats_p)
+            kw = dict(k=klim, block=blk, off=off, t=t_f, tau=tau_f, use_ov=False,
+                      decay=decay, cfg=cfg, mb=min(m, blk))
+            out_k = tss.score_select(stacked, glob, gpad, **kw)
+            out_p = tss.score_select_plain(stacked, glob, gpad, **kw)
+            err = max(err, check_close(f"{where} K2 scores", out_k[0], out_p[0], atol=1e-6),
+                      check_close(f"{where} K2 exp", out_k[1], out_p[1], atol=1e-30),
+                      check_close(f"{where} K2 (m_b, l_b)", out_k[2], out_p[2]),
+                      check_close(f"{where} K2 candidates", out_k[3], out_p[3], atol=1e-6))
+            if not torch.equal(out_k[4], out_p[4]):
+                raise AssertionError(f"{where}: candidate ids differ from the plain version")
+        kw = dict(round_idx=t, tau=tau, m=m, gumbel=gumbel, cfg=cfg)
+        sel_s, probs_s, scores_s = tss.sharded_score_select_in_process(*rows, world=world,
+                                                                       **kw)
+        sel_f, probs_f, scores_f = tss.fused_score_select(*rows, **kw)
+        if set(sel_s.tolist()) != set(sel_f.tolist()):
+            raise AssertionError(f"K8 W={world} in one process, {dtype}: the merged cohort "
+                                 "is not the single-device cohort")
+        check_close(f"K8 W={world} {dtype} probs", probs_s, probs_f, atol=1e-30)
+        check_close(f"K8 W={world} {dtype} scores", scores_s, scores_f, atol=1e-6)
+    torch.cuda.synchronize()
+    print(f"phase 2: K8 offsets, K={k} in {world} shards, f32 and bf16: K1 and K2 with "
+          f"each shard's offset == plain (rtol {RTOL}, candidate ids exact), max abs err "
+          f"{err:.3e}; the in-process merge selects the single-device cohort", flush=True)
+    return err
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def k8_work(k: int, itemsize: int, m: int) -> int:
+    """Bytes K8's function must move for K clients: each input read once (the
+    8 state rows and the f32 Gumbel row) and each output written once (probs
+    and scores in f32, the m int32 ids). K1's second pass over 4 rows, K2's
+    intermediates and the candidates are the design's choice, not the
+    function's, and are not counted; on one rank no collective moves bytes."""
+    return 8 * k * itemsize + 4 * k + 2 * 4 * k + 4 * m
+
+
+def phase_table8(dev):
+    """Phase 8: the selection control plane at population scale, the
+    reference's Table 8 (``benchmarks/table8_selector.py``). For each K in
+    TABLE8_KS, m = max(round(10^-3·K), 1), round 7, the port's copy of the
+    table's bf16 state (``data.synthetic_client_state``) and one Gumbel row,
+    three methods select a cohort: ``heterosel`` unfused
+    (``compute_scores`` → ``selection_probabilities`` →
+    ``sample_clients``), fused (``ops.heterosel_topm``, K1 + K2) and sharded
+    (``ops.heterosel_topm_sharded``, K8 on a one-rank NCCL group made
+    here). Launch counts are zeroed before the three run once at each K and
+    read after; the fused and sharded cohorts, probs and scores must be
+    bitwise equal, the sharded ones equal to K8's plain version (the cohort
+    as a set, probs and scores within RTOL), and all three cohorts equal as
+    sets (the table's own
+    acceptance); where the unfused cohort differs, the gap between the m-th
+    and (m+1)-th perturbed values must be within f32 rounding. Then each
+    (K, method) is timed."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.scoring import HeteRoScoreConfig
+    from repro_torch.core.selection import (SelectorConfig, dynamic_temperature,
+                                            gumbel_noise, make_selector)
+    from repro_torch.core.state import score_inputs, to_bf16
+    from repro_torch.data import synthetic_client_state
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import score_select as tss
+
+    cfg = HeteRoScoreConfig()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        group = dist.group.WORLD
+        if dist.get_backend(group) != "nccl":
+            raise AssertionError(f"K8's group is {dist.get_backend(group)}, not nccl")
+        cases = []
+        for k in TABLE8_KS:
+            m = max(int(round(1e-3 * k)), 1)
+            sel_cfg = SelectorConfig(num_selected=m)
+            tau = dynamic_temperature(TABLE8_ROUND, sel_cfg)
+            state = to_bf16(synthetic_client_state(k, seed=0, device=dev))
+            gumbel = gumbel_noise(torch.Generator(device=dev).manual_seed(k), k)
+            unfused = make_selector("heterosel", sel_cfg, cfg)
+            cases.append((k, m, state, gumbel, {
+                "unfused": lambda u=unfused, s=state, g=gumbel: u(g, s, TABLE8_ROUND),
+                "fused": lambda s=state, g=gumbel, tau=tau, m=m: ops.heterosel_topm(
+                    s, TABLE8_ROUND, tau, m, g, cfg),
+                "sharded": lambda s=state, g=gumbel, tau=tau, m=m: ops.heterosel_topm_sharded(
+                    s, TABLE8_ROUND, tau, m, g, cfg, group=group)}))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        outs = [{name: fn() for name, fn in methods.items()} for *_, methods in cases]
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        want = {n: 0 for n in launches}
+        want.update(score_stats=2 * len(cases), score_select=2 * len(cases),
+                    sharded_score_select=len(cases))
+        if launches != want:
+            raise AssertionError(f"Table 8 path launches {launches}, want {want}")
+
+        rows = []
+        for (k, m, state, gumbel, methods), out in zip(cases, outs):
+            mask_u, probs_u = out["unfused"]
+            sel_f, probs_f, scores_f = out["fused"]
+            sel_s, probs_s, scores_s = out["sharded"]
+            for what, a, b in (("cohort", sel_f, sel_s), ("probs", probs_f, probs_s),
+                               ("scores", scores_f, scores_s)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K={k}: sharded {what} differ from fused")
+            set_u = set(torch.nonzero(mask_u).flatten().tolist())
+            set_f = set(sel_f.tolist())
+            pert = torch.log(probs_u + 1e-30) + gumbel
+            top = torch.sort(pert, descending=True).values
+            gap = float(top[m - 1] - top[m])
+            rounding = 16 * torch.finfo(torch.float32).eps * max(
+                1.0, abs(float(top[m - 1])), abs(float(top[m])))
+            if set_u != set_f and gap > rounding:
+                raise AssertionError(
+                    f"K={k}: unfused and fused cohorts differ by {len(set_u ^ set_f)} "
+                    f"clients with a boundary gap {gap:.3e} over f32 rounding {rounding:.3e}")
+            check_close(f"K={k} unfused vs fused probs", probs_f, probs_u, atol=1e-12)
+            plain = lambda s=state, g=gumbel, m=m: tss.sharded_score_select_plain(
+                *score_inputs(s), round_idx=TABLE8_ROUND,
+                tau=dynamic_temperature(TABLE8_ROUND, SelectorConfig(num_selected=m)),
+                m=m, gumbel=g, cfg=cfg, group=group)
+            sel_p, probs_p, scores_p = plain()
+            if set(sel_p.tolist()) != set(sel_s.tolist()):
+                raise AssertionError(f"K={k}: K8's cohort is not its plain version's")
+            err = max(check_close(f"K={k} K8 probs vs plain", probs_s, probs_p, atol=1e-30),
+                      check_close(f"K={k} K8 scores vs plain", scores_s, scores_p, atol=1e-6))
+            row = {"K": k, "m": m, "cohorts_equal": set_u == set_f,
+                   "boundary_gap": gap, "f32_rounding": rounding, "sharded_vs_plain_err": err}
+            iters = 100 if k <= 10_000 else 20
+            for name, fn in methods.items():
+                row[f"{name}_ms"] = time_ms(fn, iters)
+                row[f"{name}_device_ms"] = device_ms(fn, None, iters=10)
+            if k == TABLE8_KS[-1]:
+                row["sharded_plain_ms"] = time_ms(plain, iters)
+                row["sharded_plain_device_ms"] = device_ms(plain, None, iters=10)
+                row["sharded_bound_ms"] = k8_work(k, 2, m) / HBM_BYTES_PER_S * 1e3
+            rows.append(row)
+            print("table8 " + json.dumps(row), flush=True)
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 8: Table 8 control plane, K {list(TABLE8_KS)}, bf16 state: fused == "
+          f"sharded (one-rank NCCL) bitwise, sharded == its plain version (cohort, probs "
+          f"and scores rtol {RTOL}), cohorts equal as sets; launches "
+          f"{json.dumps(launches)}", flush=True)
+    return launches, rows
+
+
+def phase_table1(dev):
+    """Phase 9: the paper's Table I comparison on full-width ResNet-18: the
+    five selectors of ``repro_torch.examples.paper_reproduction`` on phase
+    3's federation (K = 12, m = 6, batch 32, 4 local steps, lr 0.01, μ 0.1),
+    flat, TABLE1_ROUNDS rounds, each selector on the same draws (one Gumbel
+    row and one jitter row per round). No kernel runs on this path."""
+    import torch
+    from repro_torch.configs import FedConfig, get_config
+    from repro_torch.core.selection import DRAW_NAMES, selector_draws
+    from repro_torch.data import make_vision_data
+    from repro_torch.examples.paper_reproduction import METHODS, run_methods
+    from repro_torch.models import build_model
+
+    fed = FedConfig(num_clients=12, participation=0.5, rounds=TABLE1_ROUNDS,
+                    local_batch=32, lr=0.01, mu=0.1, dirichlet_alpha=0.1, seed=0)
+    data = make_vision_data(fed)
+    model = build_model(get_config("resnet18-cifar10"))
+    gen = torch.Generator(device=dev).manual_seed(fed.seed)
+    draws = [{n: DRAW_NAMES[n](gen, fed.num_clients) for n in ("gumbel", "jitter")}
+             for _ in range(fed.rounds)]
+
+    def noise(name):
+        names = selector_draws(name)
+        if names == ("gumbel",):
+            return lambda t, k: draws[t]["gumbel"]
+        return lambda t, k: {n: draws[t][n] for n in names}
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = run_methods(model, fed, data, device=dev, noise=noise)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"Table I path launched kernels {launches}")
+    summaries = {}
+    for name in METHODS:
+        res = results[name]
+        if not np.all(np.isfinite(res.train_loss)) or not all(
+                bool(torch.isfinite(p).all()) for p in res.params.values()):
+            raise AssertionError(f"{name}: non-finite loss or parameters")
+        if res.selected_history.shape != (fed.rounds, fed.num_clients) \
+                or not np.all(res.selected_history.sum(1) == fed.num_selected):
+            raise AssertionError(f"{name}: bad selection history")
+        summaries[name] = dict(
+            res.labeled_summary(),
+            select_ms_median=float(np.median(res.select_ms[1:])),
+            execute_ms_median=float(np.median(res.execute_ms[1:])),
+            eval_ms_median=float(np.median(res.eval_ms[1:])),
+            selection_counts=res.selection_counts.tolist(),
+            accuracy=res.accuracy.tolist())
+        print(f"table1 {name} " + json.dumps(summaries[name]), flush=True)
+    print(f"phase 9: Table I, {len(METHODS)} selectors x {fed.rounds} rounds on "
+          f"resnet18-cifar10, K={fed.num_clients} m={fed.num_selected}, wall {wall:.2f} s; "
+          "stability drop, lowest first: "
+          f"{sorted(METHODS, key=lambda n: results[n].stability_drop)}", flush=True)
+    return launches, summaries
+
+
 def main() -> int:
     import torch
 
@@ -1269,6 +1551,7 @@ def main() -> int:
     print(f"phase 1: {len(builds)} libraries in {time.perf_counter() - t0:.2f} s", flush=True)
 
     err, timings = phase_kernels(dev)
+    k8_err = phase_k8_offsets(dev)
     flash_err, flash_timings = phase_flash(dev)
     gmm_err, gmm_timings = phase_gmm(dev)
     ssd_err, ssd_fwd_err, ssd_timings = phase_ssd(dev)
@@ -1291,6 +1574,9 @@ def main() -> int:
         dev, 7, expert_share(get_config("kimi-k2-1t-a32b"), **MOE_SHARE), 32,
         {k: per_layer[k] for k in ("flash_attention", "grouped_matmul")}, "grouped_matmul",
         plain_f64=gmm_plain_f64)
+    release(dev)
+    paths["table8"], table8 = phase_table8(dev)
+    paths["table1"], _ = phase_table1(dev)
 
     def launches(name):
         by_path = {p: counts[name] for p, counts in paths.items()}
@@ -1363,6 +1649,20 @@ def main() -> int:
         "bound_ms": main_row["k7_bound_ms"], "bound_by": main_row["k7_bound_by"],
         "library_ms": None,  # no single PyTorch call computes it
         "shapes": ssd_timings,
+    })
+    main_row = table8[-1]   # K = 10^6, bf16 state, m = 1000
+    kernels.append({
+        "name": "sharded_score_select", "route": "cuda",
+        "source": src,   # K1 and K2 with the shard's offset; collectives in score_select.py
+        "replaces": "src/repro/kernels/score_select.py:448",
+        **launches("sharded_score_select"),
+        "max_abs_err": max([k8_err] + [r["sharded_vs_plain_err"] for r in table8]),
+        "ms": main_row["sharded_ms"], "device_ms": main_row["sharded_device_ms"],
+        "plain_ms": main_row["sharded_plain_ms"],
+        "plain_device_ms": main_row["sharded_plain_device_ms"],
+        "bound_ms": main_row["sharded_bound_ms"], "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call computes it
+        "shapes": table8,
     })
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

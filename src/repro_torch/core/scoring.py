@@ -147,3 +147,15 @@ def compute_scores(state: ClientState, round_idx, cfg: HeteRoScoreConfig, *,
     if additive:
         return combine_additive(comp, cfg)
     return combine_multiplicative(comp, cfg)
+
+
+def score_bounds(cfg: HeteRoScoreConfig) -> tuple[float, float]:
+    """(S_min, S_max) of the non-staleness part of the additive score, from
+    the component ranges (JS ≤ log 2); Thm III.3's exploration bound
+    (``core.theory``) uses them. Reference ``core/scoring.py:211``."""
+    js_max = float(torch.log(torch.tensor(2.0)))
+    s_min = (cfg.w_value * 0.0 + cfg.w_diversity * 0.0 + cfg.w_momentum * (-0.5)
+             + cfg.w_fairness * (-1.0) + cfg.w_norm * (-cfg.alpha))
+    s_max = (cfg.w_value * 1.0 + cfg.w_diversity * 2.0 * js_max + cfg.w_momentum * 1.5
+             + cfg.w_fairness * 0.0 + cfg.w_norm * 0.0)
+    return float(s_min), float(s_max)

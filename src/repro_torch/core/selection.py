@@ -1,26 +1,32 @@
-"""Probabilistic client selection — paper Eq (12) + the uniform baseline.
+"""Probabilistic client selection — paper Eq (12) + the paper's baselines.
 
 HeteRo-Select: softmax over scores with dynamic temperature
 τ(t) = τ0·(1 − 0.5·min(t/100, 1)), then m clients without replacement by
-Gumbel-top-m. torch cannot reproduce ``jax.random``, so every selector takes
-its (K,) f32 Gumbel noise as an argument: ``(gumbel, state, round_idx) ->
-(selected_mask, probs)``. The engine draws it (``gumbel_noise``) or takes it
-from the caller.
+Gumbel-top-m. Baselines (paper Sec V): ``random`` (uniform, FedAvg),
+``power_of_choice`` (d uniform candidates, the m with the highest loss) and
+``oort`` (statistical × system utility with an explore split).
+
+torch cannot reproduce ``jax.random``, so every selector takes its random
+draws as its first argument: ``(draws, state, round_idx) ->
+(selected_mask, probs)``. ``draws`` is the (K,) f32 Gumbel row, or a mapping
+of named (K,) rows (``DRAW_NAMES``) for a selector that takes more than one
+(``selector_draws``). The engine draws them (``draw``) or takes them from
+the caller.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Optional, Tuple
+from typing import Callable, Mapping, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core.scoring import HeteRoScoreConfig, compute_scores
-from repro_torch.core.state import ClientState
+from repro_torch.core.state import ClientState, staleness
 
-SelectFn = Callable[[torch.Tensor, ClientState, int],
-                    Tuple[torch.Tensor, torch.Tensor]]
+Draws = Union[torch.Tensor, Mapping[str, torch.Tensor]]
+SelectFn = Callable[[Draws, ClientState, int], Tuple[torch.Tensor, torch.Tensor]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +37,10 @@ class SelectorConfig:
     tau0: float = 1.0              # base softmax temperature τ0
     tau_decay_rounds: int = 100    # the /100 in τ(t)
     additive: bool = True          # Eq (1) vs Eq (2)
+    poc_candidates: int = 0        # Power-of-Choice d (0 ⇒ 2m)
+    oort_explore_frac: float = 0.1 # Oort ε — fraction of slots for exploration
+    oort_staleness_coef: float = 0.1
+    oort_system_alpha: float = 2.0 # Oort system-utility exponent
     # Score + softmax + sampling through the fused kernels
     # (kernels.score_select); additive form only.
     use_fused_kernel: bool = False
@@ -41,6 +51,52 @@ def gumbel_noise(generator: torch.Generator, k: int) -> torch.Tensor:
     u = torch.rand(k, generator=generator, device=generator.device)
     u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
+
+
+POC_JITTER = 1e-6   # Power-of-Choice's tie-breaking jitter is U[0, POC_JITTER)
+
+# The named (K,) f32 draws a selector can take: "gumbel", standard Gumbel;
+# "jitter", uniform in [0, POC_JITTER) (the reference's
+# ``uniform(kt, (K,), f32, 0, 1e-6)``, selection.py:194).
+DRAW_NAMES = {
+    "gumbel": gumbel_noise,
+    "jitter": lambda gen, k: POC_JITTER * torch.rand(k, generator=gen, device=gen.device),
+}
+# Selectors that take more than the one Gumbel row, and the names they take.
+SELECTOR_DRAWS = {"power_of_choice": ("gumbel", "jitter")}
+
+
+def selector_draws(name: str) -> Tuple[str, ...]:
+    """The names of the draws selector ``name`` takes each round."""
+    return SELECTOR_DRAWS.get(name, ("gumbel",))
+
+
+def draw(generator: torch.Generator, names: Tuple[str, ...], k: int) -> Draws:
+    """One round's draws from ``generator``: the bare (K,) Gumbel row when
+    that is all a selector takes, else a dict of the named rows, drawn in
+    the order given."""
+    if tuple(names) == ("gumbel",):
+        return gumbel_noise(generator, k)
+    return {n: DRAW_NAMES[n](generator, k) for n in names}
+
+
+def named_draw(draws: Draws, name: str) -> torch.Tensor:
+    """The row ``name`` of ``draws``; a bare tensor is the Gumbel row."""
+    if isinstance(draws, Mapping):
+        if name not in draws:
+            raise KeyError(f"the selector takes a draw named {name!r}; got "
+                           f"{sorted(draws)}")
+        return draws[name]
+    if name != "gumbel":
+        raise ValueError(f"the selector takes a draw named {name!r} besides the "
+                         "Gumbel row; pass its draws as a mapping by name")
+    return draws
+
+
+def _topk_first(x: torch.Tensor, m: int) -> torch.Tensor:
+    """Indices of the m largest entries, ties to the smaller index, as
+    ``jax.lax.top_k`` picks them (``torch.topk`` does not order ties)."""
+    return torch.sort(x, descending=True, stable=True).indices[:m]
 
 
 def dynamic_temperature(round_idx, cfg: SelectorConfig) -> torch.Tensor:
@@ -105,6 +161,75 @@ def random_select(gumbel: torch.Tensor, state: ClientState, round_idx: int, *,
     return sample_clients(gumbel, probs, sel_cfg.num_selected), probs
 
 
+def power_of_choice_select(draws: Draws, state: ClientState, round_idx: int, *,
+                           sel_cfg: SelectorConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Power-of-Choice [Cho et al. 20]: d uniform candidates, keep the top m
+    by local loss (reference ``core/selection.py:173``).
+
+    Draws: ``"gumbel"`` samples the d candidates (``sample_clients`` over
+    uniform probs), ``"jitter"`` (U[0, 1e-6)) breaks loss ties, as the two
+    halves of the reference's split key do. Unobserved clients get the
+    current max loss + 1 (optimistic). ``probs`` is the candidate
+    distribution, a diagnostic.
+    """
+    k = state.num_clients
+    m = sel_cfg.num_selected
+    d = sel_cfg.poc_candidates or min(2 * m, k)
+    dev = state.device
+    cand = sample_clients(named_draw(draws, "gumbel"),
+                          torch.full((k,), 1.0 / k, dtype=torch.float32, device=dev), d)
+    opt_loss = torch.where(state.has_loss > 0, state.loss_prev,
+                           torch.max(state.loss_prev) + 1.0)
+    jitter = named_draw(draws, "jitter").to(device=dev, dtype=torch.float32)
+    cand_loss = torch.where(cand, opt_loss + jitter, -torch.inf)
+    mask = torch.zeros(k, dtype=torch.bool, device=dev)
+    mask[_topk_first(cand_loss, m)] = True
+    return mask, cand.to(torch.float32) / d
+
+
+def oort_select(draws: Draws, state: ClientState, round_idx: int, *,
+                sel_cfg: SelectorConfig, speeds: Optional[torch.Tensor] = None,
+                staleness_override: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Oort [Lai et al., OSDI 21]: statistical × system utility with an
+    explore split (reference ``core/selection.py:202``).
+
+    util_k = loss_k · (1 + c·√min(Δ_k, 100)) · min(1, speed_k)^α, with Δ the
+    round-counter staleness or ``staleness_override``; ``speeds`` (K,) are
+    T_pref / t_k (omit for a homogeneous fleet). The m − ε·m exploit slots
+    are the explored clients with the top utility (ties to the smaller id,
+    as the reference's ``top_k``); the ε·m explore slots are drawn with
+    ``sample_clients`` over the never-explored clients (over all the rest
+    when none is left), from the ``"gumbel"`` draw.
+    """
+    k = state.num_clients
+    m = sel_cfg.num_selected
+    m_explore = max(int(round(sel_cfg.oort_explore_frac * m)), 1)
+    m_exploit = m - m_explore
+    dev = state.device
+    if staleness_override is None:
+        stale = staleness(state, round_idx).to(torch.float32)
+    else:
+        stale = torch.clamp_min(staleness_override.to(device=dev, dtype=torch.float32), 0.0)
+    util = state.loss_prev * (1.0 + sel_cfg.oort_staleness_coef
+                              * torch.sqrt(torch.clamp_max(stale, 100.0)))
+    if speeds is not None:
+        speeds = torch.as_tensor(speeds).to(device=dev, dtype=torch.float32)
+        util = util * torch.clamp_max(speeds, 1.0) ** sel_cfg.oort_system_alpha
+    explored = state.has_loss > 0
+    exploit_util = torch.where(explored, util, -torch.inf)
+    mask = torch.zeros(k, dtype=torch.bool, device=dev)
+    mask[_topk_first(exploit_util, m_exploit)] = True
+    unexplored = ~explored & ~mask
+    w = torch.where(unexplored, 1.0,
+                    torch.where(unexplored.any(), 0.0, (~mask).to(torch.float32)))
+    w = w / torch.clamp_min(torch.sum(w), 1e-9)
+    mask = mask | sample_clients(named_draw(draws, "gumbel"), w, m_explore)
+    probs = torch.softmax(torch.where(torch.isfinite(exploit_util), exploit_util, -1e9),
+                          dim=0)
+    return mask, probs
+
+
 def edge_selection_probs(pooled_state: ClientState, round_idx,
                          sel_cfg: SelectorConfig,
                          score_cfg: HeteRoScoreConfig) -> torch.Tensor:
@@ -117,14 +242,18 @@ def edge_selection_probs(pooled_state: ClientState, round_idx,
     return selection_probabilities(scores, dynamic_temperature(round_idx, sel_cfg))
 
 
-# Names make_selector serves; the reference's other selectors are not ported.
-SELECTORS = ("heterosel", "heterosel_pallas", "heterosel_mult", "random")
+# Names make_selector serves: the paper's five (Table I) and the fused-kernel
+# heterosel. The reference's 'filtered' and 'adaptive' are not ported.
+SELECTORS = ("heterosel", "heterosel_pallas", "heterosel_mult", "random",
+             "power_of_choice", "oort")
 
 
 def make_selector(name: str, sel_cfg: SelectorConfig,
-                  score_cfg: HeteRoScoreConfig | None = None) -> SelectFn:
+                  score_cfg: HeteRoScoreConfig | None = None, *,
+                  speeds: Optional[torch.Tensor] = None) -> SelectFn:
     """Factory over ``SELECTORS``. ``heterosel_pallas`` is the name the
-    reference gives its fused-kernel branch; here it runs the CUDA kernels."""
+    reference gives its fused-kernel branch; here it runs the CUDA kernels.
+    ``speeds`` (K,) enables Oort's system-utility term."""
     score_cfg = score_cfg or HeteRoScoreConfig()
     if name == "heterosel":
         return functools.partial(heterosel_select, sel_cfg=sel_cfg, score_cfg=score_cfg)
@@ -136,5 +265,9 @@ def make_selector(name: str, sel_cfg: SelectorConfig,
         return functools.partial(heterosel_select, sel_cfg=mult, score_cfg=score_cfg)
     if name == "random":
         return functools.partial(random_select, sel_cfg=sel_cfg)
+    if name == "power_of_choice":
+        return functools.partial(power_of_choice_select, sel_cfg=sel_cfg)
+    if name == "oort":
+        return functools.partial(oort_select, sel_cfg=sel_cfg, speeds=speeds)
     raise ValueError(f"unknown or not yet ported selector '{name}': the port "
                      f"serves {SELECTORS}")

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig
+from repro_torch.core.state import ClientState, init_client_state
 from repro_torch.fed.partition import (client_label_js, dirichlet_partition,
                                        js_divergence)
 
@@ -154,3 +155,36 @@ def make_lm_data(fed: FedConfig, vocab: int, seq_len: int = 64) -> LMFedData:
     hists = hists / hists.sum(axis=1, keepdims=True)
     js = js_divergence(hists, hists.mean(axis=0, keepdims=True))
     return LMFedData(vocab=vocab, seq_len=seq_len, rules=rules, label_js=js)
+
+
+def synthetic_client_state(k: int, seed: int = 0, *,
+                           device: str | torch.device = "cuda") -> ClientState:
+    """A mid-training (K,) selection state: ~90 % of clients observed
+    (losses in [0.3, 3), the one before 10 % higher, up to 19
+    participations, last seen in rounds 0–6, ‖Δw‖² in [0, 2)), the rest
+    never. The port's copy of the population-scale selector table's state
+    (reference ``benchmarks/table8_selector.py:61``), drawn with numpy from
+    ``seed`` instead of ``jax.random``."""
+    rng = np.random.default_rng(seed)
+    js = rng.uniform(0.0, 0.7, k).astype(np.float32)
+    observed = rng.uniform(size=k) < 0.9
+    loss = rng.uniform(0.3, 3.0, k).astype(np.float32)
+    part = rng.integers(0, 20, k)
+    last = rng.integers(0, 7, k)
+    sq = rng.uniform(0.0, 2.0, k).astype(np.float32)
+    state = init_client_state(k, js, device="cpu")
+    obs_t = torch.from_numpy(observed)
+    loss_t = torch.from_numpy(loss)
+    state = dataclasses.replace(
+        state,
+        loss_prev=torch.where(obs_t, loss_t, 0.0),
+        loss_prev2=torch.where(obs_t, loss_t * 1.1, 0.0),
+        part_count=torch.where(obs_t, torch.from_numpy(part).to(torch.int32), 0
+                               ).to(torch.int32),
+        last_selected=torch.where(obs_t, torch.from_numpy(last).to(torch.int32),
+                                  state.last_selected),
+        update_sqnorm=torch.where(obs_t, torch.from_numpy(sq), 0.0),
+        has_loss=obs_t.to(torch.float32),
+        has_momentum=obs_t.to(torch.float32),
+    )
+    return state.map(lambda x: x.to(device))

@@ -5,7 +5,7 @@ from repro_torch.fed.batched import (make_batched_local_train,
                                      stack_client_trees, train_clients_batched)
 from repro_torch.fed.engine import (AGGREGATORS, EXECUTORS, Aggregator,
                                     BatchedExecutor, CohortUpdates, FedAvg,
-                                    FederatedEngine, FederatedSpec, FLResult,
+                                    FedAvgM, FederatedEngine, FederatedSpec, FLResult,
                                     MetricsHook, RoundContext, RoundHook,
                                     SequentialExecutor, VerboseHook,
                                     WeightedFedAvg, register_aggregator,
@@ -17,7 +17,8 @@ from repro_torch.fed.partition import EdgePartition, partition_edges
 
 __all__ = [
     "AGGREGATORS", "EXECUTORS", "Aggregator", "BatchedExecutor",
-    "CohortUpdates", "EdgeCohort", "EdgePartition", "FedAvg", "FederatedEngine",
+    "CohortUpdates", "EdgeCohort", "EdgePartition", "FedAvg", "FedAvgM",
+    "FederatedEngine",
     "FederatedSpec", "FLResult", "HierarchicalEngine", "HierarchyConfig",
     "MetricsHook", "RoundContext", "RoundHook", "SequentialExecutor",
     "VerboseHook", "WeightedFedAvg", "edge_budgets", "make_batched_local_train",

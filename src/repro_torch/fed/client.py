@@ -4,13 +4,16 @@ Local objective (Eq 13):  min_w  L_k(w) + (μ/2)·||w − w_global||², by plain
 SGD:  w ← w − lr·(∇L_k(w) + μ(w − w_global)). Optimizer-state-free, which is
 what lets ``fed.batched`` vmap a whole cohort of visits into one call.
 Params are dicts of tensors; the reference's ``lax.scan`` over steps is a
-Python loop here, and gradients come from ``torch.func.grad_and_value`` so
-the visit composes with ``torch.func.vmap``.
+Python loop here, and gradients come from ``torch.func.vjp`` so the visit
+composes with ``torch.func.vmap``. The pullback runs under ``no_grad``, so
+it records no graph of the backward (``torch.func.grad`` would: it runs
+every backward with ``create_graph=True``), and without ``retain_graph``,
+so each saved activation is freed as soon as the backward has used it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, Iterable, NamedTuple, Tuple
 
 import torch
 
@@ -25,16 +28,23 @@ class LocalResult(NamedTuple):
     update_sqnorm: torch.Tensor   # ||w_k − w_global||²
 
 
-def tree_sqnorm(tree: Params) -> torch.Tensor:
-    """Σ over leaves of Σ x², leaves in sorted key order (as JAX flattens)."""
-    return sum(torch.sum(torch.square(tree[k].to(torch.float32)))
-               for k in sorted(tree))
+def tree_sqnorm(leaves: Iterable[torch.Tensor]) -> torch.Tensor:
+    """Σ over leaves of Σ x², in the order given; pass the leaves in sorted
+    key order (as JAX flattens). A generator holds one leaf at a time."""
+    return sum(torch.sum(torch.square(x.to(torch.float32))) for x in leaves)
 
 
 def fedprox_grad(loss_fn: LossFn, params: Params, anchor: Params, batch,
                  mu: float) -> Tuple[torch.Tensor, Params]:
-    """Value and FedProx gradient: ∇L + μ(w − w_anchor)."""
-    grads, loss = torch.func.grad_and_value(loss_fn)(params, batch)
+    """Value and FedProx gradient: ∇L + μ(w − w_anchor). The pullback runs
+    under ``no_grad``: its wrapper then calls autograd with
+    ``create_graph=False``, and nothing of the backward is kept; with
+    ``retain_graph=False`` the forward's saved tensors go as the backward
+    consumes them, before the proximal term is formed."""
+    loss, pullback = torch.func.vjp(lambda p: loss_fn(p, batch), params)
+    with torch.no_grad():
+        (grads,) = pullback(torch.ones_like(loss), retain_graph=False)
+    del pullback
     if mu:
         grads = {k: g + mu * (params[k].to(torch.float32)
                               - anchor[k].to(torch.float32)).to(g.dtype)
@@ -64,7 +74,7 @@ def local_train(loss_fn: LossFn, params: Params, batches: Dict[str, torch.Tensor
         w = sgd_step(w, grads, lr)
         losses.append(loss)
     losses_t = torch.stack(losses)
-    delta_sq = tree_sqnorm({k: w[k].to(torch.float32) - anchor[k].to(torch.float32)
-                            for k in w})
+    delta_sq = tree_sqnorm(w[k].to(torch.float32) - anchor[k].to(torch.float32)
+                           for k in sorted(w))
     return LocalResult(params=w, mean_loss=torch.mean(losses_t),
                        last_loss=losses_t[-1], update_sqnorm=delta_sq)

@@ -6,19 +6,22 @@ eval — and delegates each stage to a plugin:
 
   * ``ClientExecutor`` — ``BatchedExecutor`` (the cohort in one vmapped
     call, ``fed.batched``) or ``SequentialExecutor`` (one call per client).
-  * ``Aggregator`` — ``FedAvg`` (Alg. 1 line 26) or ``WeightedFedAvg``
-    (|D_k|-weighted); ``cohort_weights`` runs before execution so the
-    batched path folds the weights into its fused reduction.
+  * ``Aggregator`` — ``FedAvg`` (Alg. 1 line 26), ``WeightedFedAvg``
+    (|D_k|-weighted) or ``FedAvgM`` (server momentum); ``cohort_weights``
+    runs before execution so the batched path folds the weights into its
+    fused reduction.
   * ``RoundHook`` — ``MetricsHook`` (the series ``FLResult`` is built
     from), ``VerboseHook`` (one line per round).
 
 Randomness comes from outside where the reference draws it with
 ``jax.random``: ``FederatedSpec.noise(round_idx, K)`` gives each round's
-(K,) Gumbel noise and ``FederatedSpec.init_params`` the initial weights;
-by default both are drawn from ``torch.Generator``s seeded from
-``fed.seed``. The host data stream is ``np.random.default_rng(fed.seed)``
-as in the reference, consumed in ascending client-id order, so batches
-match the reference's bitwise.
+selection draws — the (K,) Gumbel row, or a mapping of named (K,) rows for
+a selector that takes more (``core.selection.selector_draws``:
+``power_of_choice`` takes ``gumbel`` and ``jitter``) — and
+``FederatedSpec.init_params`` the initial weights; by default both are
+drawn from ``torch.Generator``s seeded from ``fed.seed``. The host data
+stream is ``np.random.default_rng(fed.seed)`` as in the reference, consumed
+in ascending client-id order, so batches match the reference's bitwise.
 
 ``FederatedSpec.build`` returns this flat engine or, for
 ``topology='hierarchical'``, ``fed.hierarchy.HierarchicalEngine``. Only
@@ -29,15 +32,16 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import (Any, Callable, Dict, List, Optional, Protocol, Sequence,
-                    Union, runtime_checkable)
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Protocol,
+                    Sequence, Union, runtime_checkable)
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.scoring import HeteRoScoreConfig
-from repro_torch.core.selection import SelectorConfig, gumbel_noise, make_selector
+from repro_torch.core.selection import (Draws, SelectorConfig, draw, make_selector,
+                                        selector_draws)
 from repro_torch.core.state import (ClientState, init_client_state,
                                     scatter_observations, update_client_state)
 from repro_torch.device import resolve_device, synchronize
@@ -45,9 +49,11 @@ from repro_torch.fed import batched as fed_batched
 from repro_torch.fed import client as fed_client
 from repro_torch.fed import server as fed_server
 
-NoiseFn = Callable[[int, int], torch.Tensor]  # (round_idx, K) -> (K,) Gumbel
-# (round_idx, stream, n) -> (n,) Gumbel; see fed.hierarchy for the streams.
-EdgeNoiseFn = Callable[[int, int, int], torch.Tensor]
+# (round_idx, K) -> (K,) Gumbel row, or {name: (K,) row} (core.selection)
+NoiseFn = Callable[[int, int], Draws]
+EvalFn = Callable[[Any, Any, Dict[str, torch.Tensor]], float]
+# (round_idx, stream, n) -> (n,) draws; see fed.hierarchy for the streams.
+EdgeNoiseFn = Callable[[int, int, int], Draws]
 
 
 # ---------------------------------------------------------------------------
@@ -341,6 +347,18 @@ class WeightedFedAvg(Aggregator):
         return self._mean(cohort)
 
 
+class FedAvgM(Aggregator):
+    """FedAvgM: server momentum over the round means (``fed.server``)."""
+
+    name = "fedavgm"
+
+    def __init__(self, beta: float = 0.9):
+        self.momentum = fed_server.ServerMomentum(beta=beta)
+
+    def reduce(self, global_params, cohort):
+        return self.momentum.apply(global_params, self._mean(cohort))
+
+
 @register_aggregator("fedavg")
 def _make_fedavg(spec: "FederatedSpec") -> FedAvg:
     return FedAvg()
@@ -349,6 +367,11 @@ def _make_fedavg(spec: "FederatedSpec") -> FedAvg:
 @register_aggregator("fedavg_weighted")
 def _make_fedavg_weighted(spec: "FederatedSpec") -> WeightedFedAvg:
     return WeightedFedAvg()
+
+
+@register_aggregator("fedavgm")
+def _make_fedavgm(spec: "FederatedSpec") -> FedAvgM:
+    return FedAvgM()
 
 
 # ---------------------------------------------------------------------------
@@ -408,7 +431,9 @@ class FederatedSpec:
     """Declarative description of one federated run.
 
     ``executor`` / ``aggregator`` accept registry names or instances;
-    ``executor=None`` defers to ``fed.client_execution``.
+    ``executor=None`` defers to ``fed.client_execution``. ``eval_fn(model,
+    params, eval_batch) -> float`` replaces ``default_eval``, and
+    ``metric_name`` names what it returns ("metric" by default).
     ``noise`` and ``init_params`` supply the draws the reference takes from
     ``jax.random`` (see the module docstring); a hierarchical run takes its
     selection draws from ``edge_noise`` instead (``fed.hierarchy``), and
@@ -424,6 +449,8 @@ class FederatedSpec:
     score_cfg: Optional[HeteRoScoreConfig] = None
     sel_cfg: Optional[SelectorConfig] = None
     steps_per_round: Optional[int] = None
+    eval_fn: Optional[EvalFn] = None
+    metric_name: Optional[str] = None
     executor: Union[str, ClientExecutor, None] = None
     aggregator: Union[str, Aggregator] = "fedavg"
     hooks: Sequence[RoundHook] = ()
@@ -531,7 +558,9 @@ class FederatedEngine:
         score_cfg = spec.score_cfg or HeteRoScoreConfig()
         sel_cfg = spec.sel_cfg or SelectorConfig(num_selected=spec.fed.num_selected)
         self._select = make_selector(self.selector_name, sel_cfg, score_cfg)
-        self.metric_name = default_metric_name(spec.model)
+        self.eval_fn = spec.eval_fn or default_eval
+        self.metric_name = spec.metric_name or (
+            "metric" if spec.eval_fn is not None else default_metric_name(spec.model))
 
         self.device: Optional[torch.device] = None
         self.params: Any = None
@@ -568,16 +597,22 @@ class FederatedEngine:
         else:
             noise_gen = torch.Generator(device=dev)
             noise_gen.manual_seed(fed.seed)
-            self.noise = lambda t, k: gumbel_noise(noise_gen, k)
+            names = selector_draws(self.selector_name)
+            self.noise = lambda t, k: draw(noise_gen, names, k)
         self.state = init_client_state(spec.data.num_clients, spec.data.label_js,
                                        device=dev)
         self.rng = np.random.default_rng(fed.seed)
         self.metrics.reset()
 
-    def round_noise(self, t: int) -> torch.Tensor:
-        """Round t's (K,) f32 Gumbel noise, on the run's device."""
-        g = self.noise(t, self.spec.data.num_clients)
-        return torch.as_tensor(g).to(device=self.device, dtype=torch.float32)
+    def round_noise(self, t: int) -> Draws:
+        """Round t's selection draws — the (K,) Gumbel row or the named
+        rows — as f32 on the run's device."""
+        return self._on_device(self.noise(t, self.spec.data.num_clients))
+
+    def _on_device(self, draws: Draws) -> Draws:
+        if isinstance(draws, Mapping):
+            return {n: self._on_device(v) for n, v in draws.items()}
+        return torch.as_tensor(draws).to(device=self.device, dtype=torch.float32)
 
     def _run_round(self, ctx: RoundContext, t: int, eval_batch: Any) -> None:
         spec, dev = self.spec, self.device
@@ -615,7 +650,7 @@ class FederatedEngine:
         """The round's eval metric and its host time (the metric's float()
         waits for the device)."""
         t0 = time.perf_counter()
-        ctx.metric = default_eval(self.spec.model, self.params, eval_batch)
+        ctx.metric = self.eval_fn(self.spec.model, self.params, eval_batch)
         ctx.eval_ms = (time.perf_counter() - t0) * 1e3
 
     def _dense_observations(self, selected: np.ndarray, cohort: CohortUpdates):

@@ -24,7 +24,8 @@ Clients hang off edge aggregators and only edge aggregates cross the WAN:
 
 Randomness comes from outside, as in the flat engine. Each round draws
 through ``FederatedSpec.edge_noise(round_idx, stream, n)``: stream e in
-[0, E) is edge e's (|edge e|,) Gumbel draw, and stream E the (E,) outer
+[0, E) is edge e's (|edge e|,) draws (the Gumbel row, or named rows as the
+flat engine's ``noise`` gives them), and stream E the (E,) outer Gumbel
 draw, asked for only when the outer stage samples. The default draws from a
 ``torch.Generator`` seeded from ``fed.seed``; with E = 1 it hands out
 ``noise(t, K)``, so an E = 1 run (full budget, one edge) equals the flat
@@ -46,9 +47,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.scoring import HeteRoScoreConfig
-from repro_torch.core.selection import (SelectorConfig, dynamic_temperature,
+from repro_torch.core.selection import (SelectorConfig, draw, dynamic_temperature,
                                         edge_selection_probs, gumbel_noise,
-                                        make_selector, sample_clients)
+                                        make_selector, sample_clients,
+                                        selector_draws)
 from repro_torch.core.state import (pool_client_state, score_inputs,
                                     update_client_state)
 from repro_torch.device import synchronize
@@ -219,15 +221,18 @@ class HierarchicalEngine(FederatedEngine):
         else:
             gen = torch.Generator(device=dev)
             gen.manual_seed(spec.fed.seed)
-            self.edge_noise = lambda t, stream, n: gumbel_noise(gen, n)
+            names = selector_draws(self.selector_name)
+            self.edge_noise = lambda t, stream, n: (
+                gumbel_noise(gen, n) if stream == self.edge_count else draw(gen, names, n))
 
-    def edge_draw(self, t: int, stream: int, n: int) -> torch.Tensor:
-        """Round t's (n,) f32 Gumbel draw of ``stream``, on the run's device."""
-        g = torch.as_tensor(self.edge_noise(t, stream, n)).to(
-            device=self.device, dtype=torch.float32)
-        if tuple(g.shape) != (n,):
-            raise ValueError(f"edge_noise(round {t}, stream {stream}) gave shape "
-                             f"{tuple(g.shape)}, want ({n},)")
+    def edge_draw(self, t: int, stream: int, n: int):
+        """Round t's (n,) f32 draws of ``stream`` on the run's device: the
+        Gumbel row, or the named rows of a selector that takes more."""
+        g = self._on_device(self.edge_noise(t, stream, n))
+        for row in (g.values() if isinstance(g, dict) else (g,)):
+            if tuple(row.shape) != (n,):
+                raise ValueError(f"edge_noise(round {t}, stream {stream}) gave shape "
+                                 f"{tuple(row.shape)}, want ({n},)")
         return g
 
     # -- the two selection stages ------------------------------------------

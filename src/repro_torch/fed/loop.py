@@ -11,7 +11,7 @@ and outer-budget knobs and ``edge_noise`` the per-edge draws.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -31,6 +31,7 @@ def run_federated(
     sel_cfg: Optional[SelectorConfig] = None,
     selector: Optional[str] = None,
     steps_per_round: Optional[int] = None,
+    eval_fn: Optional[Callable[..., float]] = None,
     aggregator: str = "fedavg",
     client_execution: Optional[str] = None,  # None ⇒ fed.client_execution
     verbose: bool = False,
@@ -47,7 +48,7 @@ def run_federated(
     return FederatedSpec(
         model=model, fed=fed, data=data, selector=selector,
         score_cfg=score_cfg, sel_cfg=sel_cfg, steps_per_round=steps_per_round,
-        executor=client_execution, aggregator=aggregator,
+        eval_fn=eval_fn, executor=client_execution, aggregator=aggregator,
         hooks=list(hooks), verbose=verbose, round_policy=round_policy,
         topology=topology, device=device,
         noise=noise, init_params=init_params,

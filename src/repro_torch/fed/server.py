@@ -6,10 +6,12 @@ axis (``fedavg_fused``, which also takes |D_k| weights), or over a list of
 client dicts (``fedavg``). ``params_delta_f32`` and
 ``apply_weighted_deltas`` are the hierarchical cloud stage: edge aggregates
 travel as f32 deltas and combine weighted by cohort size.
+``ServerMomentum`` is FedAvgM's server step.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -76,3 +78,24 @@ def apply_weighted_deltas(global_params: Params, deltas: Sequence[Params],
         return (g.to(torch.float32) + s).to(g.dtype)
 
     return {k: upd(g, [d[k] for d in deltas]) for k, g in global_params.items()}
+
+
+@dataclasses.dataclass
+class ServerMomentum:
+    """FedAvgM: w_t = w_{t-1} − v_t,  v_t = β v_{t-1} + (w_{t-1} − w̄_t)
+    (reference ``fed/server.py:125``). A beyond-paper aggregator that damps
+    the round-to-round oscillation the paper measures as stability drop.
+    The velocity is f32; parameters keep their dtype."""
+
+    beta: float = 0.9
+    velocity: Optional[Params] = None
+
+    def apply(self, prev_global: Params, avg: Params) -> Params:
+        delta = {k: p.to(torch.float32) - avg[k].to(torch.float32)
+                 for k, p in prev_global.items()}
+        if self.velocity is None:
+            self.velocity = delta
+        else:
+            self.velocity = {k: self.beta * v + delta[k] for k, v in self.velocity.items()}
+        return {k: (p.to(torch.float32) - self.velocity[k]).to(p.dtype)
+                for k, p in prev_global.items()}

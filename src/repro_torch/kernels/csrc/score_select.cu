@@ -9,14 +9,19 @@
 //   K3  select_kernel<T, false>     <- _score_kernel (fused_score_probs): K2
 //                                      with the sampling compiled out
 //   K4  segment_kernel              <- _segment_kernel (segmented_score_probs)
+// K8 (sharded_score_select) runs K1 and K2 on each client shard with the
+// shard's global column offset, as the reference runs the same two bodies
+// with SC_OFF != 0; its collectives live in the Python wrapper.
 // The plain PyTorch versions live beside the wrappers in
 // repro_torch/kernels/score_select.py (score_stats_plain, score_select_plain,
 // score_probs_plain, segment_probs_plain).
 //
 // Operand: one stacked (9, kpad) row-major array of f32 or bf16, rows in
 // core.state.score_inputs order plus the staleness-override row. For K1-K3
-// kpad is a whole number of blocks and column c < klim is a client, the rest
-// padding. For K4 kpad = E * seg, edge-major: edge e owns columns
+// kpad is a whole number of blocks; local column c holds global client
+// off + c, a client while off + c < klim, the rest padding (off = 0 except
+// on a K8 shard). Loads and stores stay local; the candidate ids K2 writes
+// are global. For K4 kpad = E * seg, edge-major: edge e owns columns
 // [e*seg, e*seg + sizes[e]), the rest of its slice is padding.
 //
 // Bound on an H100 (3.35 TB/s HBM): all four kernels are memory-bound.
@@ -120,14 +125,14 @@ __device__ float block_reduce(float v, float identity, Op op, float* red) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-stats_kernel(const T* __restrict__ st, int64_t kpad, int block, int64_t klim,
-             float* __restrict__ out) {
+stats_kernel(const T* __restrict__ st, int64_t kpad, int block, int64_t off,
+             int64_t klim, float* __restrict__ out) {
   __shared__ float red[kWarps + 1];
   const int64_t base = (int64_t)blockIdx.x * block;
   float lmin = kBig, lmax = -kBig, sumsq = 0.f, nobs = 0.f, hmax = 0.f;
   for (int i = threadIdx.x; i < block; i += kThreads) {
     const int64_t c = base + i;
-    const bool valid = c < klim;
+    const bool valid = off + c < klim;
     const float loss = load(st + ROW_LOSS * kpad + c);
     const float sq = load(st + ROW_SQ * kpad + c);
     const float cnt = load(st + ROW_CNT * kpad + c);
@@ -201,8 +206,8 @@ __device__ __forceinline__ bool goes_before(float va, int ia, float vb, int ib) 
 template <typename T, bool kSample>
 __global__ void __launch_bounds__(kThreads)
 select_kernel(const T* __restrict__ st, const float* __restrict__ gumbel,
-              const float* __restrict__ glob, int64_t kpad, int block, int64_t klim,
-              float t, float tau, int use_ov, float decay, ScoreCfg cfg, int mb,
+              const float* __restrict__ glob, int64_t kpad, int block, int64_t off,
+              int64_t klim, float t, float tau, int use_ov, float decay, ScoreCfg cfg, int mb,
               float* __restrict__ scores, float* __restrict__ e_out,
               float* __restrict__ part, float* __restrict__ cval,
               int* __restrict__ cidx) {
@@ -220,7 +225,7 @@ select_kernel(const T* __restrict__ st, const float* __restrict__ gumbel,
     const int64_t c = base + i;
     const float s = client_score(st, kpad, c, g, t, decay, use_ov, cfg);
     scores[c] = s;
-    const float z = c < klim ? s / tau : -kBig;
+    const float z = off + c < klim ? s / tau : -kBig;
     key[i] = z;
     zmax = fmaxf(zmax, z);
   }
@@ -230,7 +235,7 @@ select_kernel(const T* __restrict__ st, const float* __restrict__ gumbel,
   for (int i = threadIdx.x; i < block; i += kThreads) {
     const int64_t c = base + i;
     const float z = key[i];
-    const float e = c < klim ? expf(z - m_b) : 0.f;
+    const float e = off + c < klim ? expf(z - m_b) : 0.f;
     e_out[c] = e;
     lsum += e;
     if constexpr (kSample) {
@@ -268,7 +273,7 @@ select_kernel(const T* __restrict__ st, const float* __restrict__ gumbel,
     __syncthreads();
     for (int i = threadIdx.x; i < mb; i += kThreads) {
       cval[(int64_t)blockIdx.x * mb + i] = key[i];
-      cidx[(int64_t)blockIdx.x * mb + i] = (int)(base + idx[i]);
+      cidx[(int64_t)blockIdx.x * mb + i] = (int)(off + base + idx[i]);
     }
   }
 }
@@ -342,33 +347,33 @@ extern "C" {
 
 // dtype: 0 = float32 rows, 1 = bfloat16 rows.
 int hs_stats(int dtype, const void* stacked, long long kpad, int block,
-             int nblocks, long long klim, float* out, void* stream) {
+             int nblocks, long long off, long long klim, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     stats_kernel<float><<<nblocks, kThreads, 0, s>>>(
-        static_cast<const float*>(stacked), kpad, block, klim, out);
+        static_cast<const float*>(stacked), kpad, block, off, klim, out);
   } else {
     stats_kernel<__nv_bfloat16><<<nblocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(stacked), kpad, block, klim, out);
+        static_cast<const __nv_bfloat16*>(stacked), kpad, block, off, klim, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int hs_select(int dtype, const void* stacked, const float* gumbel,
               const float* glob, long long kpad, int block, int nblocks,
-              long long klim, float t, float tau, int use_ov, float decay,
-              const ScoreCfg* cfg, int mb, float* scores, float* e, float* part,
-              float* cval, int* cidx, void* stream) {
+              long long off, long long klim, float t, float tau, int use_ov,
+              float decay, const ScoreCfg* cfg, int mb, float* scores, float* e,
+              float* part, float* cval, int* cidx, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(block) * (sizeof(float) + sizeof(int));
   if (dtype == 0) {
     select_kernel<float, true><<<nblocks, kThreads, smem, s>>>(
-        static_cast<const float*>(stacked), gumbel, glob, kpad, block, klim, t,
-        tau, use_ov, decay, *cfg, mb, scores, e, part, cval, cidx);
+        static_cast<const float*>(stacked), gumbel, glob, kpad, block, off, klim,
+        t, tau, use_ov, decay, *cfg, mb, scores, e, part, cval, cidx);
   } else {
     select_kernel<__nv_bfloat16, true><<<nblocks, kThreads, smem, s>>>(
         static_cast<const __nv_bfloat16*>(stacked), gumbel, glob, kpad, block,
-        klim, t, tau, use_ov, decay, *cfg, mb, scores, e, part, cval, cidx);
+        off, klim, t, tau, use_ov, decay, *cfg, mb, scores, e, part, cval, cidx);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -381,12 +386,12 @@ int hs_score(int dtype, const void* stacked, const float* glob, long long kpad,
   const size_t smem = static_cast<size_t>(block) * sizeof(float);
   if (dtype == 0) {
     select_kernel<float, false><<<nblocks, kThreads, smem, s>>>(
-        static_cast<const float*>(stacked), nullptr, glob, kpad, block, klim, t,
-        tau, use_ov, decay, *cfg, 0, scores, e, part, nullptr, nullptr);
+        static_cast<const float*>(stacked), nullptr, glob, kpad, block, 0, klim,
+        t, tau, use_ov, decay, *cfg, 0, scores, e, part, nullptr, nullptr);
   } else {
     select_kernel<__nv_bfloat16, false><<<nblocks, kThreads, smem, s>>>(
         static_cast<const __nv_bfloat16*>(stacked), nullptr, glob, kpad, block,
-        klim, t, tau, use_ov, decay, *cfg, 0, scores, e, part, nullptr, nullptr);
+        0, klim, t, tau, use_ov, decay, *cfg, 0, scores, e, part, nullptr, nullptr);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""Public wrappers around the hand-written kernels (K1–K7)."""
+"""Public wrappers around the hand-written kernels (K1–K8)."""
 
 from __future__ import annotations
 
@@ -86,6 +86,24 @@ def heterosel_topm(state: ClientState, round_idx, tau, m: int, gumbel,
         *score_inputs(state),
         round_idx=round_idx, tau=tau, m=m, gumbel=gumbel, cfg=cfg,
         staleness_override=staleness_override,
+    )
+
+
+def heterosel_topm_sharded(state: ClientState, round_idx, tau, m: int, gumbel,
+                           cfg: HeteRoScoreConfig, *, group, staleness_override=None,
+                           block=None):
+    """``heterosel_topm`` with the client axis split over the ranks of the
+    ``torch.distributed`` process group ``group`` (K8). Counterpart of the
+    reference's ``ops.heterosel_topm_sharded`` (``kernels/ops.py:139``):
+    ``group`` takes the place of its ``mesh, axis``, and the group's size is
+    the client axis's (the reference's ``sharding/rules.axis_size``). CUDA
+    state needs an NCCL group, CPU state a gloo group; a mismatch raises.
+    Same return contract, the same on every rank.
+    """
+    return _ss.sharded_score_select(
+        *score_inputs(state),
+        round_idx=round_idx, tau=tau, m=m, gumbel=gumbel, cfg=cfg, group=group,
+        staleness_override=staleness_override, block=block,
     )
 
 

@@ -1,6 +1,7 @@
 """Fused HeteRo-Select scoring, softmax and Gumbel-top-m selection (Eqs 1–12).
 
-Port of the reference's ``repro.kernels.score_select``, four kernels:
+Port of the reference's ``repro.kernels.score_select``: four kernels and
+the sharded select built on two of them.
 
   * K1 ``score_stats`` (replaces ``_stats_kernel``): each block of clients is
     reduced to five partials (loss min/max over observed clients, Σ‖Δw‖²
@@ -19,8 +20,14 @@ Port of the reference's ``repro.kernels.score_select``, four kernels:
     launch, each edge's statistics, scores and softmax inside its own slice
     of an edge-major ``(E·seg,)`` layout. ``segmented_score_probs`` is the
     hierarchical engine's inner stage under ``heterosel_pallas``.
+  * K8 ``sharded_score_select`` (replaces the reference's
+    ``sharded_score_select``): K1 and K2 on each client shard of a
+    ``torch.distributed`` group, with the shard's global column offset,
+    stitched by an all-reduce of the statistics, the normalizer merge and an
+    all-gather of the candidates. ``SHARDED_LAUNCHES``
+    counts its calls on the card, ``LAUNCHES`` the K1 and K2 launches.
 
-All four are CUDA C++ for sm_90a (``csrc/score_select.cu``, whose header
+All four kernels are CUDA C++ for sm_90a (``csrc/score_select.cu``, whose header
 gives their bound and design). Each wrapper below takes its plain PyTorch
 version for a tensor on the CPU, and launches its kernel for a CUDA tensor —
 there is no fallback from one to the other. ``LAUNCHES`` counts kernel
@@ -59,11 +66,14 @@ NSTATS = 5
 # Kernel launches since the last reset, by kernel.
 LAUNCHES = {"score_stats": 0, "score_select": 0, "score_probs": 0,
             "segment_probs": 0}
+# K8's calls on the card (each launches K1 and K2 once, counted above).
+SHARDED_LAUNCHES = {"sharded_score_select": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, SHARDED_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 class _ScoreCfg(ctypes.Structure):
@@ -79,9 +89,9 @@ def _library() -> ctypes.CDLL:
     """Build (first use) and load csrc/score_select.cu, with its C types."""
     lib = _build.build("score_select").lib
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.hs_stats.argtypes = [i, p, ll, i, i, ll, p, p]
+    lib.hs_stats.argtypes = [i, p, ll, i, i, ll, ll, p, p]
     lib.hs_stats.restype = i
-    lib.hs_select.argtypes = [i, p, p, p, ll, i, i, ll, f, f, i, f,
+    lib.hs_select.argtypes = [i, p, p, p, ll, i, i, ll, ll, f, f, i, f,
                               ctypes.POINTER(_ScoreCfg), i, p, p, p, p, p, p]
     lib.hs_select.restype = i
     lib.hs_score.argtypes = [i, p, p, ll, i, i, ll, f, f, i, f,
@@ -170,12 +180,14 @@ def _check_stacked(stacked: torch.Tensor, block: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def score_stats_plain(stacked: torch.Tensor, *, k: int, block: int) -> torch.Tensor:
-    """Plain version of K1: (nblocks, NSTATS) f32 per-block partials."""
+def score_stats_plain(stacked: torch.Tensor, *, k: int, block: int,
+                      off: int = 0) -> torch.Tensor:
+    """Plain version of K1: (nblocks, NSTATS) f32 per-block partials. Local
+    column c is global client ``off + c``, valid while that is below ``k``."""
     nblocks = stacked.shape[1] // block
     x = stacked.to(torch.float32).view(NROWS, nblocks, block)
     col = torch.arange(nblocks * block, device=stacked.device).view(nblocks, block)
-    valid = col < k
+    valid = off + col < k
     obs = valid & (x[ROW_HASL] > 0)
     loss = x[ROW_LOSS]
     return torch.stack([
@@ -187,19 +199,22 @@ def score_stats_plain(stacked: torch.Tensor, *, k: int, block: int) -> torch.Ten
     ], dim=1)
 
 
-def score_stats(stacked: torch.Tensor, *, k: int, block: int) -> torch.Tensor:
-    """K1: per-block partials of the global scoring statistics.
+def score_stats(stacked: torch.Tensor, *, k: int, block: int,
+                off: int = 0) -> torch.Tensor:
+    """K1: per-block partials of the global scoring statistics; ``off`` is
+    the global id of local column 0 (a K8 shard's offset, else 0).
 
     CPU tensor → ``score_stats_plain``; CUDA tensor → the sm_90a kernel.
     """
     nblocks = _check_stacked(stacked, block)
     if stacked.device.type == "cpu":
-        return score_stats_plain(stacked, k=k, block=block)
+        return score_stats_plain(stacked, k=k, block=block, off=off)
     _build.check_card(stacked.device)
     lib = _library()
     out = torch.empty((nblocks, NSTATS), dtype=torch.float32, device=stacked.device)
     rc = lib.hs_stats(_dtype_code(stacked), stacked.data_ptr(), stacked.shape[1],
-                      block, nblocks, k, out.data_ptr(), _build.stream(stacked.device))
+                      block, nblocks, off, k, out.data_ptr(),
+                      _build.stream(stacked.device))
     _raise_on(lib, rc, "score_stats")
     LAUNCHES["score_stats"] += 1
     return out
@@ -267,14 +282,14 @@ def _block_scores_plain(x: torch.Tensor, glob: torch.Tensor, *, t: float,
 
 def _block_softmax_plain(stacked, glob, *, k: int, block: int, t: float,
                          tau: float, use_ov: bool, decay: float,
-                         cfg: HeteRoScoreConfig):
+                         cfg: HeteRoScoreConfig, off: int = 0):
     """Pass 2 shared by K2 and K3: scores (kpad,), z and e (nblocks, block),
     and the (nblocks, 2) (m_b, l_b) pairs."""
     dev = stacked.device
     kpad = stacked.shape[1]
     nblocks = kpad // block
     x = stacked.to(torch.float32)
-    valid = (torch.arange(kpad, device=dev) < k).view(nblocks, block)
+    valid = (off + torch.arange(kpad, device=dev) < k).view(nblocks, block)
     s = _block_scores_plain(x, glob, t=t, decay=decay, use_ov=use_ov, cfg=cfg)
     tau_t = torch.tensor(tau, dtype=torch.float32, device=dev)
     z = torch.where(valid, (s / tau_t).view(nblocks, block), -BIG)
@@ -285,17 +300,18 @@ def _block_softmax_plain(stacked, glob, *, k: int, block: int, t: float,
 
 def score_select_plain(stacked, glob, gumbel, *, k: int, block: int, t: float,
                        tau: float, use_ov: bool, decay: float,
-                       cfg: HeteRoScoreConfig, mb: int):
+                       cfg: HeteRoScoreConfig, mb: int, off: int = 0):
     """Plain version of K2. Returns ``(scores (kpad,), e (kpad,),
     part (nblocks, 2) = (m_b, l_b), cval (nblocks, mb) f32,
     cidx (nblocks, mb) int32)``; candidates are ordered by value descending,
-    ties by column ascending."""
+    ties by column ascending, and carry global ids (``off`` + column)."""
     s, z, e, part = _block_softmax_plain(stacked, glob, k=k, block=block, t=t,
-                                         tau=tau, use_ov=use_ov, decay=decay, cfg=cfg)
+                                         tau=tau, use_ov=use_ov, decay=decay, cfg=cfg,
+                                         off=off)
     nblocks = z.shape[0]
     pert = z + gumbel.view(nblocks, block)
     vals, loc = torch.sort(pert, dim=1, descending=True, stable=True)
-    first = torch.arange(nblocks, device=stacked.device)[:, None] * block
+    first = torch.arange(nblocks, device=stacked.device)[:, None] * block + off
     return (s, e.reshape(-1), part,
             vals[:, :mb].contiguous(), (loc[:, :mb] + first).to(torch.int32))
 
@@ -309,10 +325,10 @@ def _check_glob(glob: torch.Tensor, stacked: torch.Tensor) -> None:
 
 def score_select(stacked, glob, gumbel, *, k: int, block: int, t: float,
                  tau: float, use_ov: bool, decay: float,
-                 cfg: HeteRoScoreConfig, mb: int):
+                 cfg: HeteRoScoreConfig, mb: int, off: int = 0):
     """K2: scores, softmax pieces and per-block candidates (see the plain
-    version for the outputs). CPU tensors → ``score_select_plain``; CUDA
-    tensors → the sm_90a kernel."""
+    version for the outputs); ``off`` as in ``score_stats``. CPU tensors →
+    ``score_select_plain``; CUDA tensors → the sm_90a kernel."""
     nblocks = _check_stacked(stacked, block)
     kpad = stacked.shape[1]
     _check_glob(glob, stacked)
@@ -325,7 +341,7 @@ def score_select(stacked, glob, gumbel, *, k: int, block: int, t: float,
     if stacked.device.type == "cpu":
         return score_select_plain(stacked, glob, gumbel, k=k, block=block, t=t,
                                   tau=tau, use_ov=use_ov, decay=decay, cfg=cfg,
-                                  mb=mb)
+                                  mb=mb, off=off)
     _build.check_card(stacked.device)
     lib = _library()
     dev = stacked.device
@@ -336,7 +352,7 @@ def score_select(stacked, glob, gumbel, *, k: int, block: int, t: float,
     cval = torch.empty((nblocks, mb), **f32)
     cidx = torch.empty((nblocks, mb), dtype=torch.int32, device=dev)
     rc = lib.hs_select(_dtype_code(stacked), stacked.data_ptr(), gumbel.data_ptr(),
-                       glob.data_ptr(), kpad, block, nblocks, k, t, tau,
+                       glob.data_ptr(), kpad, block, nblocks, off, k, t, tau,
                        int(use_ov), decay, ctypes.byref(_cfg_struct(cfg)), mb,
                        scores.data_ptr(),
                        e.data_ptr(), part.data_ptr(), cval.data_ptr(),
@@ -590,3 +606,185 @@ def segmented_score_probs_plain(*rows, sizes, round_idx, tau,
     return _segmented(segment_probs_plain, *rows, sizes=sizes, round_idx=round_idx,
                       tau=tau, cfg=cfg, seg=seg,
                       staleness_override=staleness_override)
+
+
+# ---------------------------------------------------------------------------
+# K8: the sharded select — K1 + K2 on each client shard, collectives between
+# ---------------------------------------------------------------------------
+
+SHARD_ALIGN = 128   # a shard's width is a multiple of this (the reference's LANE)
+MAX_CLIENTS = 2**31 - 1   # candidate ids are int32
+
+
+class _GroupComm:
+    """K8's collectives over a ``torch.distributed`` process group: this
+    process holds the one shard of its rank. CUDA tensors need an NCCL
+    group, CPU tensors a gloo group."""
+
+    def __init__(self, group, device: torch.device):
+        import torch.distributed as dist
+
+        self.dist, self.group = dist, group
+        backend = dist.get_backend(group)
+        want = {"cuda": "nccl", "cpu": "gloo"}[device.type]
+        if backend != want:
+            raise ValueError(f"state on {device} needs a {want} group for the "
+                             f"sharded select, got {backend}")
+        self.world = dist.get_world_size(group)
+        self.ranks = (dist.get_rank(group),)
+
+    def _reduce(self, parts, op):
+        t = parts[0].clone()
+        self.dist.all_reduce(t, op=op, group=self.group)
+        return t
+
+    def max(self, parts):
+        return self._reduce(parts, self.dist.ReduceOp.MAX)
+
+    def sum(self, parts):
+        return self._reduce(parts, self.dist.ReduceOp.SUM)
+
+    def gather(self, parts):
+        out = [torch.empty_like(parts[0]) for _ in range(self.world)]
+        self.dist.all_gather(out, parts[0].contiguous(), group=self.group)
+        return torch.cat(out)
+
+
+class _LocalComm:
+    """The same collectives' arithmetic over all ``world`` shards held in one
+    process: what one card can check of a world size above 1."""
+
+    def __init__(self, world: int):
+        if world < 1:
+            raise ValueError(f"world must be ≥ 1, got {world}")
+        self.world = world
+        self.ranks = range(world)
+
+    def max(self, parts):
+        return torch.stack(parts).amax(0)
+
+    def sum(self, parts):
+        return torch.stack(parts).sum(0)
+
+    def gather(self, parts):
+        return torch.cat(parts)
+
+
+def shard_layout(k: int, world: int, block: Optional[int] = None):
+    """(local_k, block, nblocks, local_pad) of one of ``world`` client shards:
+    ``local_k = ceil(K / (world·128))·128`` clients each, as the reference
+    splits them (``score_select.py:465``), then the single-device block
+    layout of that width, padded to ``local_pad``."""
+    local_k = -(-k // (world * SHARD_ALIGN)) * SHARD_ALIGN
+    blk, nblocks, local_pad = _layout(local_k, block)
+    return local_k, blk, nblocks, local_pad
+
+
+def shard_operands(rows, gumbel, staleness_override, *, rank: int, world: int,
+                   block: Optional[int] = None):
+    """Shard ``rank``'s operands: ``(stacked (NROWS, local_pad), gumbel
+    (local_pad,), off, klim)``. Shard r holds global clients
+    ``[off, klim)`` with ``off = r·local_k`` and ``klim = min(off + local_k,
+    K)``, the limit clamped to the shard's own extent so its padding never
+    aliases the next shard's ids (reference :487-489); a shard past K is all
+    padding."""
+    k = rows[0].shape[0]
+    local_k, _, _, local_pad = shard_layout(k, world, block)
+    off = rank * local_k
+    klim = min(off + local_k, k)
+    n = max(klim - off, 0)
+    part = [r[off:off + n] for r in rows]
+    stale = None if staleness_override is None else staleness_override[off:off + n]
+    stacked = _pack(part, stale, n, local_pad)
+    g = gumbel.to(device=stacked.device, dtype=torch.float32)[off:off + n]
+    return stacked, F.pad(g, (0, local_pad - n)), off, klim
+
+
+def _sharded_select(stats_fn: Callable, select_fn: Callable, comm, *rows, round_idx,
+                    tau, m: int, gumbel: torch.Tensor, cfg: HeteRoScoreConfig,
+                    staleness_override=None, block: Optional[int] = None):
+    k = rows[0].shape[0]
+    if not 1 <= m <= k:
+        raise ValueError(f"m must be in [1, K={k}], got {m}")
+    if k > MAX_CLIENTS:
+        raise ValueError(f"K={k} exceeds the int32 candidate ids ({MAX_CLIENTS})")
+    local_k, blk, nblocks, _ = shard_layout(k, comm.world, block)
+    t, tau, decay = _scalars(round_idx, tau, cfg)
+    kw = dict(block=blk, t=t, tau=tau, use_ov=staleness_override is not None,
+              decay=decay, cfg=cfg)
+    shards = []
+    for rank in comm.ranks:
+        stacked, gpad, off, klim = shard_operands(
+            rows, gumbel, staleness_override, rank=rank, world=comm.world, block=block)
+        shards.append((stacked, gpad, off, klim,
+                       stats_fn(stacked, k=klim, block=blk, off=off)))
+    # Pass-1 statistics: one MAX of (−lmin, lmax, hmax), one SUM of
+    # (Σ‖Δw‖², nobs) — the reference's pmin/pmax/psum (:496-500).
+    mx = comm.max([torch.stack([-st[:, ST_LMIN].amin(), st[:, ST_LMAX].amax(),
+                                st[:, ST_HMAX].amax()]) for *_, st in shards])
+    sm = comm.sum([torch.stack([st[:, ST_SUMSQ].sum(), st[:, ST_NOBS].sum()])
+                   for *_, st in shards])
+    glob = torch.stack([-mx[0], mx[1], sm[0] / torch.clamp_min(sm[1], 1.0),
+                        torch.clamp_min(mx[2], 1.0)])
+    outs = [select_fn(stacked, glob, gpad, k=klim, off=off, mb=min(m, blk), **kw)
+            for stacked, gpad, off, klim, _ in shards]
+    # Softmax normalizer merge over (m_b, l_b) (:529-531).
+    mglob = comm.max([part[:, 0].amax().reshape(1) for _, _, part, _, _ in outs])
+    lglob = torch.clamp_min(comm.sum(
+        [torch.sum(part[:, 1] * torch.exp(part[:, 0] - mglob)).reshape(1)
+         for _, _, part, _, _ in outs]), 1e-30)
+    probs = [(e.view(nblocks, blk) * torch.exp(part[:, 0] - mglob)[:, None] / lglob
+              ).reshape(-1)[:local_k] for _, e, part, _, _ in outs]
+    # Every shard sees every candidate: the same global top-m on each (:537-539).
+    cval = comm.gather([o[3].reshape(-1) for o in outs])
+    cidx = comm.gather([o[4].reshape(-1) for o in outs])
+    selected = cidx[torch.topk(cval, m).indices]
+    return (selected, comm.gather(probs)[:k],
+            comm.gather([o[0][:local_k] for o in outs])[:k])
+
+
+def sharded_score_select(*rows, round_idx, tau, m: int, gumbel: torch.Tensor,
+                         cfg: HeteRoScoreConfig, group, staleness_override=None,
+                         block: Optional[int] = None):
+    """K8: ``fused_score_select`` with the client axis split over the ranks
+    of ``group`` (reference ``score_select.py:448``, ``sharded_score_select``).
+
+    Every rank passes the same (K,) rows and Gumbel row (the reference draws
+    that row inside, at :474); rank r scores clients
+    ``[r·local_k, min((r+1)·local_k, K))`` through K1 and K2 with that
+    offset (``shard_operands``). Three collectives stitch the shards: a MAX
+    and a SUM of the pass-1 statistics, the (m_b, l_b) normalizer merge,
+    and an all-gather of each shard's top-min(m, block) candidates, cut to
+    the global top-m. Returns ``(selected (m,) int32, probs (K,),
+    scores (K,))``, the same on every rank. CUDA state needs an NCCL group,
+    CPU state a gloo group.
+    """
+    comm = _GroupComm(group, rows[0].device)
+    out = _sharded_select(score_stats, score_select, comm, *rows,
+                          round_idx=round_idx, tau=tau, m=m, gumbel=gumbel, cfg=cfg,
+                          staleness_override=staleness_override, block=block)
+    if rows[0].device.type == "cuda":   # K1 and K2 ran on the card
+        SHARDED_LAUNCHES["sharded_score_select"] += 1
+    return out
+
+
+def sharded_score_select_plain(*rows, round_idx, tau, m: int, gumbel: torch.Tensor,
+                               cfg: HeteRoScoreConfig, group,
+                               staleness_override=None, block: Optional[int] = None):
+    """``sharded_score_select`` through the plain versions of K1 and K2."""
+    comm = _GroupComm(group, rows[0].device)
+    return _sharded_select(score_stats_plain, score_select_plain, comm, *rows,
+                           round_idx=round_idx, tau=tau, m=m, gumbel=gumbel, cfg=cfg,
+                           staleness_override=staleness_override, block=block)
+
+
+def sharded_score_select_in_process(*rows, world: int, round_idx, tau, m: int,
+                                    gumbel: torch.Tensor, cfg: HeteRoScoreConfig,
+                                    staleness_override=None,
+                                    block: Optional[int] = None):
+    """K8's arithmetic with all ``world`` shards in this process: each shard
+    through K1 and K2, the collectives replaced by the same reductions over
+    local tensors."""
+    return _sharded_select(score_stats, score_select, _LocalComm(world), *rows,
+                           round_idx=round_idx, tau=tau, m=m, gumbel=gumbel, cfg=cfg,
+                           staleness_override=staleness_override, block=block)

@@ -472,7 +472,7 @@ def test_not_ported_parts_refused(tiny):
     with pytest.raises(NotImplementedError, match="not ported"):
         FederatedSpec(model, hfed, data, selector="adaptive", device="cpu").build()
     with pytest.raises(ValueError, match="not yet ported"):
-        FederatedSpec(model, hfed, data, selector="oort", device="cpu").build()
+        FederatedSpec(model, hfed, data, selector="filtered", device="cpu").build()
 
 
 def test_incompatible_aggregator(tiny):

@@ -91,3 +91,27 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                           capture_output=True, text=True, timeout=120, env=env)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+# The modules slice 6 added or extended.
+SLICE6_MODULES = ("repro_torch.core.theory", "repro_torch.core.selection",
+                  "repro_torch.kernels.score_select", "repro_torch.kernels.ops",
+                  "repro_torch.fed.server", "repro_torch.fed.client",
+                  "repro_torch.data.synthetic", "repro_torch.examples.paper_reproduction")
+
+
+@pytest.mark.parametrize("module", SLICE6_MODULES)
+def test_slice6_module_loads_no_jax_and_no_reference(module):
+    """Imported alone in a fresh interpreter, the module pulls in neither JAX
+    nor the reference package (the scan above checks import statements;
+    this checks what an import actually loads)."""
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    assert path.exists()
+    code = (f"import sys, {module}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, env=env)
+    assert proc.returncode == 0, proc.stderr

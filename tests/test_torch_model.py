@@ -186,7 +186,7 @@ def test_engine_refuses_what_is_not_ported():
         with pytest.raises(NotImplementedError, match="not ported"):
             FederatedSpec(tm, f, data, device="cpu", round_policy="async").build()
     with pytest.raises(ValueError, match="not ported"):
-        FederatedSpec(tm, fed, data, device="cpu", aggregator="fedavgm").build()
+        FederatedSpec(tm, fed, data, device="cpu", aggregator="fedbuff").build()
 
 
 def test_sequential_and_batched_executors_agree(capsys):

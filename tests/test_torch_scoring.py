@@ -161,7 +161,7 @@ def test_selector_masks_match_reference(name, k, m):
 
 def test_make_selector_lists_what_is_ported():
     with pytest.raises(ValueError, match="heterosel_pallas"):
-        selection.make_selector("oort", selection.SelectorConfig())
+        selection.make_selector("adaptive", selection.SelectorConfig())
 
 
 def test_gumbel_noise_is_seeded():
