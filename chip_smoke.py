@@ -208,6 +208,32 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_report(log: str, names) -> list:
+    """Registers, spill bytes and static shared memory of each entry function
+    of a ptxas -v log whose mangled name holds one of ``names``."""
+    import re
+
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = next((n for n in names if n in m.group(1)), None)
+            if cur:
+                rows.append({"kernel": cur, "mangled": m.group(1)})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            rows[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[-1].update(registers=int(m.group(1)),
+                            static_smem=int(smem.group(1)) if smem else 0)
+    return rows
+
+
 def random_rows(k: int, dtype, gen, t: int = 9):
     """Eight (K,) rows of a mid-run state on the generator's device, with
     never-selected clients, in ``score_inputs`` order."""
@@ -563,13 +589,14 @@ def phase_flash(dev):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = flash_inputs(case, dtype, dev, seed=1)
             key = str(dtype).split(".")[-1]
-            row = {"case": name, "dtype": key, "B": case[1], "S": case[2], "T": case[3],
-                   "H": case[4], "KVH": case[5], "D": case[6], "causal": causal}
+            kname = "flash_fwd_kernel_wgmma" if dtype == torch.bfloat16 else "flash_fwd_kernel"
+            row = {"case": name, "dtype": key, "kernel": kname, "B": case[1], "S": case[2],
+                   "T": case[3], "H": case[4], "KVH": case[5], "D": case[6], "causal": causal}
             kern = lambda: tfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
             plain = lambda: tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
             row["k5_ms"] = time_ms(kern, 200 if small else 20)
             row["k5_plain_ms"] = time_ms(plain, 50 if small else 3)
-            row["k5_device_ms"] = device_ms(kern, "flash_fwd_kernel")
+            row["k5_device_ms"] = device_ms(kern, kname)
             row["k5_plain_device_ms"] = device_ms(plain, None, iters=5)
             lib = lambda: sdpa(q, k, v, causal)
             row["sdpa_max_abs_diff"] = float((lib().float() - kern()[0].float()).abs().max())
@@ -770,7 +797,8 @@ def phase_gmm(dev):
         kern = lambda: tgmm.grouped_matmul_fwd(xs, rhs, sizes)
         plain = lambda: tgmm.gmm_plain_clients(xs, rhs, sizes)
         s = sizes.cpu().numpy()
-        row = {"case": case[0], "C": case[1], "R": case[2], "K": case[3], "N": case[4],
+        row = {"case": case[0], "kernel": "gmm_bf16_kernel", "C": case[1], "R": case[2],
+               "K": case[3], "N": case[4],
                "G": case[5], "rhs": case[6], "rows_in_groups": int(s.sum()),
                "max_group": int(s.max())}
         row["k6_ms"] = time_ms(kern, 20)
@@ -1549,6 +1577,12 @@ def main() -> int:
         print(f"phase 1: built {built.path.name} (nvcc {built.seconds:.2f} s)", flush=True)
         print(built.log.strip(), flush=True)
     print(f"phase 1: {len(builds)} libraries in {time.perf_counter() - t0:.2f} s", flush=True)
+    # K5's and K6's kernels as ptxas placed them; their dynamic shared memory
+    # is set per launch (csrc headers).
+    for built, names in ((builds[1], ("flash_fwd_kernel_wgmma", "flash_fwd_kernel")),
+                         (builds[2], ("gmm_bf16_kernel", "gmm_f32_kernel"))):
+        for row in ptxas_report(built.log, names):
+            print("ptxas " + json.dumps(row), flush=True)
 
     err, timings = phase_kernels(dev)
     k8_err = phase_k8_offsets(dev)

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface and loaded with ``ctypes``. The build goes into
 ``kernels/build/`` (listed in ``.gitignore``) under a name keyed by the hash
-of the source and the flags, so a changed source is rebuilt and an unchanged
-one is reused. Nothing here runs at import time.
+of the source, the shared headers and the flags, so a changed source is
+rebuilt and an unchanged one is reused. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -78,9 +78,11 @@ def _nvcc() -> str:
 
 @functools.cache
 def build(name: str) -> Built:
-    """Compile (or reuse) ``csrc/<name>.cu`` and load it."""
+    """Compile (or reuse) ``csrc/<name>.cu`` and load it; the key covers the
+    shared headers ``csrc/*.cuh`` too."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"lib{name}-{digest}.so"

@@ -9,7 +9,10 @@ kernel ``_flash_kernel``), whose function is the reference's
     in q's dtype and the f32 row log-sum-exp ``(B, H, S)``. A CPU tensor
     takes ``flash_attention_plain``; a CUDA tensor launches the sm_90a
     kernel of ``csrc/flash_attention.cu`` (whose header gives its bound and
-    design). There is no fallback from one to the other.
+    design): for bf16 the tensor-core kernel ``flash_fwd_kernel_wgmma``
+    (TMA-fed 64-key tiles, a KV head's query heads packed into one tile),
+    for f32 the CUDA-core ``flash_fwd_kernel``. There is no fallback from
+    one to the other.
   * ``FlashAttention`` — the ``torch.autograd.Function`` around it, in the
     ``forward`` + ``setup_context`` form that ``torch.func`` accepts. Its
     backward is plain PyTorch (the reference differentiates its jnp
@@ -31,10 +34,12 @@ import torch
 
 from repro_torch.kernels import _build
 
-BLOCK_Q = 32        # query rows per CTA (csrc kBlockQ)
-BLOCK_K = 32        # keys per kv tile (csrc kBlockK)
+BLOCK_Q = 32        # query rows per CTA of the f32 kernel (csrc kBlockQ)
+BLOCK_K = 32        # keys per kv tile of the f32 kernel (csrc kBlockK); the bf16
+                    # kernel's 64-key tiles differ from it only in summation order
 MAX_HEAD_DIM = 256
 NEG_INF = -1e30     # finite, as in the reference: see csrc/flash_attention.cu
+LOG2E = 1.4426950408889634
 BWD_BLOCK_K = 256   # keys per tile of the plain backward
 
 LAUNCHES = {"flash_attention": 0}
@@ -90,6 +95,25 @@ def _groups(q: torch.Tensor, kvh: int) -> torch.Tensor:
     return q.reshape(b, s, kvh, h // kvh, d)
 
 
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    """exp for the plain path. On the CPU it is 2^(x·log2 e) in f64, rounded
+    once to x's dtype: ``torch.exp`` and ``torch.log`` of a CPU tensor run
+    MKL's vector math library (VML), whose first call on several intra-op
+    threads at once can compute one thread's share with ~1e-4 relative error
+    (queue 3 (f); ``tests/test_torch_flash_threads.py --torch-only``).
+    ``torch.exp2`` and ``torch.special.xlogy`` do not go through VML."""
+    if x.device.type != "cpu":
+        return torch.exp(x)
+    return torch.exp2(x.double() * LOG2E).to(x.dtype)
+
+
+def _log(x: torch.Tensor) -> torch.Tensor:
+    """log for the plain path; on the CPU without VML, as ``_exp``."""
+    if x.device.type != "cpu":
+        return torch.log(x)
+    return torch.special.xlogy(1.0, x.double()).to(x.dtype)
+
+
 def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, t: int, causal: bool,
           window: int) -> torch.Tensor:
     """(S, Tc) validity of each (query, key) pair, as the reference masks."""
@@ -103,9 +127,11 @@ def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, t: int, causal: bool,
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool, window: int = 0):
-    """Plain version of K5, with the kernel's blocking: kv tiles of BLOCK_K
-    keys in order, each row updating its f32 (m, l, acc) per tile, and a row
-    of query tile i skipping the causally dead tiles its CTA skips. Returns
+    """Plain version of K5, with the f32 kernel's blocking: kv tiles of
+    BLOCK_K keys in order, each row updating its f32 (m, l, acc) per tile,
+    and a row of query tile i skipping the causally dead tiles its CTA skips
+    (skipped tiles add exactly nothing, so other blockings differ only in
+    summation order). Returns
     ``(o (B, S, H, D) in q.dtype, lse (B, H, S) f32)``."""
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
@@ -131,8 +157,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         sc = torch.einsum("bskgd,btkd->bkgst", qf, kc)
         sc = torch.where(_mask(q_pos, k_pos, t, causal, window), sc, NEG_INF)
         m_new = torch.maximum(m, sc.amax(-1))
-        p = torch.exp(sc - m_new[..., None])
-        corr = torch.exp(m - m_new)
+        p = _exp(sc - m_new[..., None])
+        corr = _exp(m - m_new)
         live = kt < kt_end                                   # (S,)
         l = torch.where(live, l * corr + p.sum(-1), l)
         acc = torch.where(live[:, None], acc * corr[..., None]
@@ -140,15 +166,16 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = torch.where(live, m_new, m)
     lc = torch.clamp_min(l, 1e-30)
     o = (acc / lc[..., None]).permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
-    lse = (m + torch.log(lc)).reshape(b, h, s)
+    lse = (m + _log(lc)).reshape(b, h, s)
     return o.to(q.dtype), lse
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool, window: int = 0):
-    """K5 on the card: one launch of ``flash_fwd_kernel``. Same contract as
-    ``flash_attention_plain``; operands must be CUDA tensors with a
-    contiguous last dimension."""
+    """K5 on the card: one launch of ``flash_fwd_kernel_wgmma`` (bf16) or
+    ``flash_fwd_kernel`` (f32). Same contract as ``flash_attention_plain``;
+    operands must be CUDA tensors with a contiguous last dimension, read
+    through their other strides."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda takes CUDA tensors, got {q.device}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
@@ -215,7 +242,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, window: int = 0):
         k_pos = j0 + torch.arange(kc.shape[1], device=q.device)
         sc = torch.einsum("bskgd,btkd->bkgst", qf, kc)
         sc = torch.where(_mask(q_pos, k_pos, t, causal, window), sc, NEG_INF)
-        p = torch.exp(sc - lse[..., None])
+        p = _exp(sc - lse[..., None])
         dp = torch.einsum("bskgd,btkd->bkgst", dof, vc)
         ds = p * (dp - delta[..., None])
         dvs.append(torch.einsum("bkgst,bskgd->btkd", p, dof))

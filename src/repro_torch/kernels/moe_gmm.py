@@ -18,8 +18,9 @@ Pieces:
     rows gathered back, rows past the last group 0; ``gmm_plain_clients``
     runs it client by client over a folded cohort.
   * ``gmm_cuda`` — one launch of the sm_90a kernel of ``csrc/moe_gmm.cu``
-    (whose header gives its bound and design). It reads the layout's blocks
-    in place, and takes a cohort folded in: xs (C·R, K), group_sizes (C, G)
+    (whose header gives its bound and design; bf16 streams the weights
+    through a TMA ring into ``mma.sync``, f32 runs an FMA loop). It reads
+    the layout's blocks in place, and takes a cohort folded in: xs (C·R, K), group_sizes (C, G)
     and rhs (C, G, K, N), or (G, K, N) shared by the C clients, read through
     its strides; client c's expert g is group c·G + g.
   * ``grouped_matmul_fwd`` — CPU tensors take the plain version, CUDA

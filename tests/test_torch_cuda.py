@@ -316,6 +316,64 @@ def test_cuda_flash_attention_reads_strided_operands(cuda_device):
     torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
 
 
+# bf16 layouts of K5's wgmma kernel: every head width it pads (to 64, 128
+# or 256), groups of 1, 7 and 8 query heads per KV head, S and T ragged
+# against the 64-key tiles and the packed query tiles.
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 7, 8])
+@pytest.mark.parametrize("d", [1, 24, 64, 112, 128, 256])
+def test_cuda_flash_attention_bf16_head_dims_and_groups(cuda_device, d, g):
+    case = (2, 100, 100, 2 * g, 2, d, True, 0)
+    q, k, v = _qkv(case, torch.bfloat16, cuda_device, seed=d + g)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    o_p, lse_p = tfa.flash_attention_plain(q, k, v, causal=True)
+    assert_flash_close(o, o_p)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+
+
+# (B, S, T, H, KVH, D, causal, window): S ≠ T both ways, ragged against every
+# tile; the sliding window with grouped heads of 64 and 112.
+FLASH_BF16_CASES = [
+    (2, 70, 130, 14, 2, 64, False, 0),
+    (2, 130, 70, 14, 2, 64, True, 0),
+    (1, 77, 301, 16, 2, 112, False, 0),
+    (1, 700, 700, 14, 2, 64, True, 256),
+    (1, 600, 600, 64, 8, 112, True, 256),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_BF16_CASES,
+                         ids=["s<t", "s>t-causal", "s<t-d112", "window-d64", "window-d112"])
+def test_cuda_flash_attention_bf16_lengths_and_window(cuda_device, case):
+    causal, window = case[6], case[7]
+    q, k, v = _qkv(case, torch.bfloat16, cuda_device, seed=7)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    o_p, lse_p = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert_flash_close(o, o_p)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bf16_unaligned_strides(cuda_device):
+    """bf16 q, k, v as views of a packed projection whose row stride (5 heads
+    of 36: 360 bytes) and head offsets are not 16-byte aligned: the kernel
+    copies them with ordinary loads instead of TMA, in the same launch."""
+    b, s, h, kvh, d = 2, 90, 3, 1, 36
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    packed = torch.randn(b, s, h + 2 * kvh, d, generator=gen, device=cuda_device)
+    packed = packed.to(torch.bfloat16)
+    q, k, v = packed[:, :, :h], packed[:, :, h:h + kvh], packed[:, :, h + kvh:]
+    assert (k.stride(1) * 2) % 16 and (k.data_ptr() % 16)
+    before = tfa.LAUNCHES["flash_attention"]
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    assert tfa.LAUNCHES["flash_attention"] == before + 1
+    o_p, lse_p = tfa.flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                                           causal=True)
+    assert_flash_close(o, o_p)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+
+
 def _attention_loss_f64(q, k, v, w):
     """Σ attention(q, k, v)·w in f64 by the definition (causal, GQA by
     repeating the KV heads), over a leading client axis."""
@@ -333,21 +391,10 @@ def _over(got, want, rtol=1e-5, atol=1e-5):
 
 
 def _cpu_reference(fn, *args):
-    """``fn`` on CPU copies of ``args``, on one intra-op thread. With the
-    default eight, the first multi-threaded CPU vmap∘grad of a pytest
-    process came out wrong in 3 of 16 processes (torch 2.11.0 on the host
-    of an H100): every gradient entry of one thread's share of the folded
-    batch (4 batch rows × 2 KV heads) moved by up to 1.3e-4, 60× its usual
-    gap to an f64 reference, while the same call repeated in the same
-    process, the one-thread call and the card all stayed within 1e-5 of
-    f64 (the diagnosis ``_vmap_grad_report`` prints). The cause is not
-    known; ``tests/test_torch_flash_threads.py`` repeats the CPU side alone."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return fn(*(a.cpu() for a in args))
-    finally:
-        torch.set_num_threads(threads)
+    """``fn`` on CPU copies of ``args``, on the default intra-op threads
+    (``tests/test_torch_flash_threads.py`` holds the CPU path's first
+    multi-threaded call to its one-thread result)."""
+    return fn(*(a.cpu() for a in args))
 
 
 def _vmap_grad_report(q, k, v, w, got, want, grad, saved, kvh):
@@ -676,6 +723,44 @@ def test_cuda_grouped_matmul_matches_plain(cuda_device, case, dtype):
                                      sizes[i], block_m=bm) for i in range(c)])
     assert got.dtype == dtype and got.shape == want.shape
     assert_gmm_close(got, want)
+
+
+# bf16 layouts of K6's TMA kernel, each over sizes with an empty group, a
+# group longer than one block (block_m 32) and rows past the last group:
+# per-client, shared and transposed (the dX view) weights, a transposed view
+# of shared weights, weights with no contiguous dimension, and xs whose row
+# stride is not 16-byte aligned (the last two copied by the producer warp).
+GMM_LAYOUTS = ["client", "shared", "transposed", "transposed-shared", "strided", "xs-strided"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", GMM_LAYOUTS)
+def test_cuda_grouped_matmul_bf16_layouts(cuda_device, layout):
+    from repro_torch.kernels import moe_gmm as tgmm
+
+    c, r, k, n, g, bm = 2, 200, 200, 136, 3, 32
+    sizes = torch.tensor([[0, 75, 90], [120, 0, 1]], dtype=torch.int32, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    bf = lambda *shape: torch.randn(*shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+    xs = bf(c * r, k)
+    if layout == "xs-strided":
+        xs = bf(c * r, k + 3)[:, 1:k + 1]
+        assert (xs.stride(0) * 2) % 16
+    if layout.startswith("transposed"):
+        rhs = bf(c, g, n, k).transpose(-1, -2)
+    elif layout == "strided":
+        rhs = bf(c, g, 2 * k, 2 * n)[:, :, ::2, ::2]
+    else:
+        rhs = bf(c, g, k, n)
+    if layout in ("shared", "transposed-shared"):
+        rhs = rhs[0]
+    before = tgmm.LAUNCHES["grouped_matmul"]
+    got = tgmm.grouped_matmul_fwd(xs, rhs, sizes, block_m=bm)
+    torch.cuda.synchronize()
+    assert tgmm.LAUNCHES["grouped_matmul"] == before + 1
+    want = tgmm.gmm_plain_clients(xs, rhs, sizes, block_m=bm)
+    assert_gmm_close(got, want)
+    assert bool((got[r + 121:] == 0).all())   # client 1's rows past its last group
 
 
 @pytest.mark.cuda
