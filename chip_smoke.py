@@ -10,7 +10,8 @@ Phases, in order; any failure raises and the script exits nonzero:
      HeteRo-Select kernels K1–K4 (score_select.cu), the flash-attention
      kernel K5 (flash_attention.cu), the grouped matmul K6 (moe_gmm.cu) and
      the SSD chunk kernel K7 (ssd_scan.cu), one nvcc each, started together,
-     with their ptxas reports.
+     with their ptxas reports, and K7's SASS checked for TF32 tensor-core
+     mma instructions.
   2. Kernels against their plain PyTorch versions on the card, f32 and bf16
      state, staleness override off and on: K1 + K2 for K ∈ {12, 4133, 2^20}
      and m ∈ {6, 64, 1024} (m ≤ K), selected sets equal; K3 for the same K;
@@ -25,9 +26,12 @@ Phases, in order; any failure raises and the script exits nonzero:
      the eval's unfolded launch; empty groups, one group with every row and
      rows past the last group; bf16 and f32): the rows that are 0 the same
      rows, bf16 within one bf16 ulp plus 1e-5 of the largest output, f32 to
-     1e-5 relative plus 1e-5 of the largest (summation order only). K7 for the cases in
-     SSD_CASES (f32): y_intra, states and cum_last to 1e-5 relative plus
-     1e-5 of the largest entry; and ops.ssd_forward through K7 against the
+     1e-5 relative plus 1e-5 of the largest (summation order only). K7 (C·Bᵀ
+     once per batch row and chunk, then every head's W·x and state on the
+     tensor cores in 3xTF32) for the cases in SSD_CASES (f32): y_intra,
+     states and cum_last to 1e-5 relative plus 1e-5 of the largest entry;
+     its timing rows carry both bounds, the f32 CUDA-core one and the
+     3xTF32 tensor-core one. And ops.ssd_forward through K7 against the
      plain sequential recurrence to 1e-4 (relative and of the largest
      entry). K8's offset: K = 2^20 (f32 and bf16) split into K8_WORLD
      client shards of this process, K1 and K2 on each shard with its global
@@ -147,14 +151,21 @@ FLASH_TIMED = ("path", "prefill 4096", "kimi path")
 # cores, which accumulate in f32, so K5's f32 state does not force the CUDA
 # cores; f32 inputs have no tensor-core path with TF32 off.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# Dense TF32 on the tensor cores (NVIDIA data sheet), for K7's 3xTF32 bound:
+# three TF32 products for each f32 product.
+PEAK_TF32 = 494.7e12
 # K7 cases: (name, B, S, CL, NH, HP, N). "path" is the shape K7 takes in
 # phase 6: a cohort of 4 clients × batch 8 (or 32 eval sequences), one
 # 256-row chunk (phase 6's 256 tokens),
-# mamba2-370m's 32 heads of 64 and state 128.
+# mamba2-370m's 32 heads of 64 and state 128. "CL 100" is neither a multiple
+# of the kernel's 16-row mma tile nor of its 64-row CTA tile (three chunks);
+# "HP 128 N 256" is the largest head and state the kernel takes.
 SSD_CASES = (("path", 32, 256, 256, 32, 64, 128),
              ("ragged", 3, 300, 128, 5, 64, 128),
              ("smoke", 8, 32, 32, 16, 32, 16),
-             ("prefill 4096", 1, 4096, 256, 32, 64, 128))
+             ("prefill 4096", 1, 4096, 256, 32, 64, 128),
+             ("CL 100", 4, 250, 100, 8, 64, 128),
+             ("HP 128 N 256", 2, 512, 256, 4, 128, 256))
 SSD_TIMED = ("path", "prefill 4096")
 SSD_FORWARD_RTOL = 1e-4
 # Phase 6's sequence length: one full chunk of mamba2-370m's ssm_chunk. The
@@ -232,6 +243,23 @@ def ptxas_report(log: str, names) -> list:
             rows[-1].update(registers=int(m.group(1)),
                             static_smem=int(smem.group(1)) if smem else 0)
     return rows
+
+
+def sass_tf32_mma(so_path, names) -> dict:
+    """Count of TF32 tensor-core mma instructions (HMMA.1688.F32.TF32) in the
+    SASS of each kernel of a built library whose mangled name holds one of
+    ``names`` (cuobjdump -sass, beside nvcc)."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", str(so_path)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    counts = {}
+    for block in out.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        if any(n in name for n in names):
+            counts[name] = block.count("HMMA.1688.F32.TF32")
+    return counts
 
 
 def random_rows(k: int, dtype, gen, t: int = 9):
@@ -678,7 +706,8 @@ def phase_ssd(dev):
     torch.cuda.synchronize()
     print(f"phase 2: {len(SSD_CASES)} K7 cases, kernel == plain (rtol {RTOL} and {RTOL} of "
           f"the max); max abs err {err:.3e}; ssd_forward == recurrence (rtol "
-          f"{SSD_FORWARD_RTOL}), max abs err {fwd_err:.3e}", flush=True)
+          f"{SSD_FORWARD_RTOL}), max abs err {fwd_err:.3e}; heads kernel CTAs per SM at "
+          f"HP 32/64/128: {[tssd.occupancy(hp) for hp in (32, 64, 128)]}", flush=True)
 
     timings = []
     for case in (c for c in SSD_CASES if c[0] in SSD_TIMED):
@@ -692,13 +721,18 @@ def phase_ssd(dev):
                "HP": hp, "N": n}
         row["k7_ms"] = time_ms(kern, 20)
         row["k7_plain_ms"] = time_ms(plain, 5)
-        row["k7_device_ms"] = device_ms(kern, "ssd_chunk_kernel")
+        # Both kernels of a call (ssd_chunk_cb_kernel, ssd_chunk_heads_kernel).
+        row["k7_device_ms"] = device_ms(kern, "ssd_chunk_")
         row["k7_plain_device_ms"] = device_ms(plain, None, iters=5)
         nbytes, flops = ssd_work(case)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS["float32"] * 1e3
-        row.update(bytes=nbytes, flops=flops, k7_bound_ms=max(t_bytes, t_ops),
-                   k7_bound_by="bytes" if t_bytes >= t_ops else "operations",
+        # The f32 CUDA-core bound (PR 14's design), and the 3xTF32
+        # tensor-core bound of this design: each beside the byte bound.
+        t_f32 = flops / PEAK_FLOPS["float32"] * 1e3
+        t_tc = 3 * flops / PEAK_TF32 * 1e3
+        row.update(bytes=nbytes, flops=flops, k7_bytes_ms=t_bytes,
+                   k7_bound_f32_ms=max(t_bytes, t_f32), k7_bound_ms=max(t_bytes, t_tc),
+                   k7_bound_by="bytes" if t_bytes >= t_tc else "operations",
                    k7_library_ms=None)  # no single PyTorch call computes it
         timings.append(row)
         print("timing " + json.dumps(row), flush=True)
@@ -1577,12 +1611,19 @@ def main() -> int:
         print(f"phase 1: built {built.path.name} (nvcc {built.seconds:.2f} s)", flush=True)
         print(built.log.strip(), flush=True)
     print(f"phase 1: {len(builds)} libraries in {time.perf_counter() - t0:.2f} s", flush=True)
-    # K5's and K6's kernels as ptxas placed them; their dynamic shared memory
-    # is set per launch (csrc headers).
+    # K5's, K6's and K7's kernels as ptxas placed them; their dynamic shared
+    # memory is set per launch (csrc headers).
     for built, names in ((builds[1], ("flash_fwd_kernel_wgmma", "flash_fwd_kernel")),
-                         (builds[2], ("gmm_bf16_kernel", "gmm_f32_kernel"))):
+                         (builds[2], ("gmm_bf16_kernel", "gmm_f32_kernel")),
+                         (builds[3], ("ssd_chunk_cb_kernel", "ssd_chunk_heads_kernel"))):
         for row in ptxas_report(built.log, names):
             print("ptxas " + json.dumps(row), flush=True)
+    # K7 runs its products on the tensor cores: every one of its kernels'
+    # SASS must hold TF32 mma instructions.
+    k7_sass = sass_tf32_mma(builds[3].path, ("ssd_chunk_cb_kernel", "ssd_chunk_heads_kernel"))
+    print("sass " + json.dumps(k7_sass), flush=True)
+    if len(k7_sass) < 2 or not all(k7_sass.values()):
+        raise RuntimeError(f"K7 kernels without TF32 mma instructions in their SASS: {k7_sass}")
 
     err, timings = phase_kernels(dev)
     k8_err = phase_k8_offsets(dev)
@@ -1679,8 +1720,11 @@ def main() -> int:
         "max_abs_err": ssd_err,
         "ssd_forward_max_abs_err": ssd_fwd_err,
         "ssm_eval_logit_gap": ssm_gap,
-        "ms": main_row["k7_ms"], "plain_ms": main_row["k7_plain_ms"],
+        "sass_tf32_mma": k7_sass,
+        "ms": main_row["k7_ms"], "device_ms": main_row["k7_device_ms"],
+        "plain_ms": main_row["k7_plain_ms"],
         "bound_ms": main_row["k7_bound_ms"], "bound_by": main_row["k7_bound_by"],
+        "bound_f32_ms": main_row["k7_bound_f32_ms"],
         "library_ms": None,  # no single PyTorch call computes it
         "shapes": ssd_timings,
     })

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels of this directory:
 // mbarriers, TMA tile loads and their tensor maps, wgmma with its shared
-// memory descriptors, ldmatrix and the proxy fences between them. Every
-// function is a thin wrapper over one PTX instruction (or one CUDA driver call)
+// memory descriptors, ldmatrix and the proxy fences between them, cp.async,
+// and mma.sync on TF32 with the 3xTF32 split. Every function is a thin
+// wrapper over one PTX instruction, a few of them, or one CUDA driver call,
 // so that the kernels read as the pipeline they implement.
 
 #pragma once
@@ -297,6 +298,88 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+// ---------------------------------------------------------------------------
+// cp.async
+// ---------------------------------------------------------------------------
+
+// 16 (or 4) bytes from global to shared memory, asynchronously. With `valid`
+// false nothing is read (`src` need only be a mapped address) and the bytes
+// are zeros. 16-byte copies need 16-byte aligned addresses on both sides.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most `N` of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync on TF32, and the 3xTF32 split that keeps f32 accuracy
+// ---------------------------------------------------------------------------
+
+// f rounded to TF32 (10 explicit bits), to nearest with ties away from zero:
+// what cvt.rna.tf32.f32 gives for finite f, on the integer pipe (the
+// conversion pipe runs at a quarter of its rate).
+__device__ __forceinline__ uint32_t to_tf32(float f) {
+  return (__float_as_uint(f) + 0x1000u) & 0xffffe000u;
+}
+
+// f = hi + lo + O(2^-21 |f|): hi is f rounded to TF32 (10 explicit bits),
+// lo the exact remainder f - hi (|lo| <= 2^-11 |hi|), passed as it is: the
+// mma reads a TF32 operand's top 19 bits and ignores the low 13, so lo
+// enters truncated to TF32. Rounding lo too (one more add) made K7 6 %
+// slower and no closer to f64 (scripts/k7_variants.py, PERF.md).
+__device__ __forceinline__ void split_tf32(float f, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(f);
+  lo = __float_as_uint(f - __uint_as_float(hi));
+}
+
+// d += a.b for a 16x8 (row) by 8x8 (col) TF32 tile. Fragments (g = lane / 4,
+// t = lane % 4): a = {(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)},
+// b = {(t, g), (t + 4, g)}, d = {(g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[m][n] += a[m].b[n] to about f32 accuracy, over MT x NT tiles, from split
+// operands: lo.hi + hi.lo + hi.hi (lo.lo, ~2^-22 of a product, is dropped).
+// Each pass runs over every tile before the next, so consecutive mma's add
+// into different accumulators and do not wait for one another.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[MT][NT][4], const uint32_t (&ah)[MT][4],
+                                           const uint32_t (&al)[MT][4],
+                                           const uint32_t (&bh)[NT][2],
+                                           const uint32_t (&bl)[NT][2]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) mma_tf32(d[m][n], al[m], bh[n][0], bh[n][1]);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) mma_tf32(d[m][n], ah[m], bl[n][0], bl[n][1]);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) mma_tf32(d[m][n], ah[m], bh[n][0], bh[n][1]);
 }
 
 }  // namespace hopper

@@ -33,13 +33,14 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._math import exp as _exp
+from repro_torch.kernels._math import log as _log
 
 BLOCK_Q = 32        # query rows per CTA of the f32 kernel (csrc kBlockQ)
 BLOCK_K = 32        # keys per kv tile of the f32 kernel (csrc kBlockK); the bf16
                     # kernel's 64-key tiles differ from it only in summation order
 MAX_HEAD_DIM = 256
 NEG_INF = -1e30     # finite, as in the reference: see csrc/flash_attention.cu
-LOG2E = 1.4426950408889634
 BWD_BLOCK_K = 256   # keys per tile of the plain backward
 
 LAUNCHES = {"flash_attention": 0}
@@ -93,25 +94,6 @@ def _groups(q: torch.Tensor, kvh: int) -> torch.Tensor:
     h // G, as the kernel reads it (no repeat of K and V)."""
     b, s, h, d = q.shape
     return q.reshape(b, s, kvh, h // kvh, d)
-
-
-def _exp(x: torch.Tensor) -> torch.Tensor:
-    """exp for the plain path. On the CPU it is 2^(x·log2 e) in f64, rounded
-    once to x's dtype: ``torch.exp`` and ``torch.log`` of a CPU tensor run
-    MKL's vector math library (VML), whose first call on several intra-op
-    threads at once can compute one thread's share with ~1e-4 relative error
-    (queue 3 (f); ``tests/test_torch_flash_threads.py --torch-only``).
-    ``torch.exp2`` and ``torch.special.xlogy`` do not go through VML."""
-    if x.device.type != "cpu":
-        return torch.exp(x)
-    return torch.exp2(x.double() * LOG2E).to(x.dtype)
-
-
-def _log(x: torch.Tensor) -> torch.Tensor:
-    """log for the plain path; on the CPU without VML, as ``_exp``."""
-    if x.device.type != "cpu":
-        return torch.log(x)
-    return torch.special.xlogy(1.0, x.double()).to(x.dtype)
 
 
 def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, t: int, causal: bool,

@@ -10,6 +10,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import score_select as _ss
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels._math import exp as _exp
 
 
 def flash_mha(q, k, v, *, causal: bool = True, window: int = 0):
@@ -59,7 +60,7 @@ def ssd_forward(x, dt, a_neg, b_in, c_in, *, chunk: int = 256, h0=None):
         return y_intra[:, 0, :s], states[:, 0]
 
     # Cross-chunk recurrence: the state entering each chunk.
-    chunk_decay = torch.exp(cum_last)                            # (B, NC, NH)
+    chunk_decay = _exp(cum_last)                                 # (B, NC, NH)
     h = torch.zeros((bsz, nh, hp, n), dtype=torch.float32, device=x.device) \
         if h0 is None else h0
     h_enter = []
@@ -69,7 +70,7 @@ def ssd_forward(x, dt, a_neg, b_in, c_in, *, chunk: int = 256, h0=None):
     h_enter = torch.stack(h_enter, 1)                            # (B, NC, NH, HP, N)
 
     cum = _ssd.chunk_cumsum(dtc * a_neg)
-    y_inter = torch.einsum("bcin,bchpn->bcihp", cc, h_enter) * torch.exp(cum)[..., None]
+    y_inter = torch.einsum("bcin,bchpn->bcihp", cc, h_enter) * _exp(cum)[..., None]
     y = (y_intra + y_inter).reshape(bsz, nc * chunk, nh, hp)
     return y[:, :s], h
 

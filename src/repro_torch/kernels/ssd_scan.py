@@ -16,8 +16,10 @@ Pieces:
     ``A_log``), b and c ``(B, NC, CL, N)``, all f32. It returns y_intra
     ``(B, NC, CL, NH, HP)``, states ``(B, NC, NH, HP, N)`` and cum_last
     ``(B, NC, NH)``. A CPU tensor takes ``ssd_chunk_plain``; a CUDA tensor
-    launches the sm_90a kernel of ``csrc/ssd_scan.cu`` (whose header gives
-    its bound and design). There is no fallback from one to the other.
+    launches the sm_90a kernels of ``csrc/ssd_scan.cu`` (whose header gives
+    their bound and design): C·Bᵀ once per (batch row, chunk), then every
+    head's W·x and state on the tensor cores (3×TF32). There is no fallback
+    from one to the other.
   * ``SSDChunk`` — the ``torch.autograd.Function`` around it, in the
     ``forward`` + ``setup_context`` form that ``torch.func`` accepts. Its
     backward is plain PyTorch (the reference differentiates its jnp
@@ -36,14 +38,16 @@ the kernel alike:
     one chunk it overflows to inf and inf·0 is NaN. Masking first keeps
     K7 finite wherever the exact recurrence (``ref.ssd_reference``) is.
   * cum is accumulated in f64 and each partial sum rounded to f32 once
-    (``chunk_cumsum``). A parallel prefix on the card and a sequential one
-    on the CPU would otherwise round differently; this way the kernel, the
-    plain version on either device and the cross-chunk correction in
-    ``ops.ssd_forward`` see the same cum (torch's CPU cumsum of f32 already
-    accumulates in f64).
+    (``chunk_cumsum``). f64 sums of f32 terms of like magnitude are exact,
+    so their order is free: the kernel's shuffle scan, the plain version's
+    cumsum on either device and the cross-chunk correction in
+    ``ops.ssd_forward`` see the same cum (the csrc header says when that
+    holds). Summed in f32, a parallel prefix on the card and a sequential
+    one on the CPU would round differently.
 
 ``ops.ssd_forward`` is the public entry. ``LAUNCHES["ssd_chunk"]`` counts
-kernel launches; the plain version does not count.
+calls of K7 on the card (each launches its two kernels); the plain version
+does not count.
 """
 
 from __future__ import annotations
@@ -55,10 +59,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._math import exp as _exp
 
 MAX_CHUNK = 256      # csrc kMaxChunk
 MAX_HEAD_DIM = 128   # csrc kMaxHeadDim
 MAX_STATE = 256      # csrc kMaxState
+TILE = 64            # csrc kTile: the scratch of C·Bᵀ is (B·NC, CLP, CLP), CLP = CL
+                     # rounded up to it
 
 LAUNCHES = {"ssd_chunk": 0}
 
@@ -73,11 +80,19 @@ def _library() -> ctypes.CDLL:
     """Build (first use) and load csrc/ssd_scan.cu, with its C types."""
     lib = _build.build("ssd_scan").lib
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ssd_chunk_forward.argtypes = [p] * 8 + [i] * 6 + [ll] * 16 + [p]
+    lib.ssd_chunk_forward.argtypes = [p] * 10 + [i] * 6 + [ll] * 16 + [p]
     lib.ssd_chunk_forward.restype = i
+    lib.ssd_occupancy.argtypes = [i]
+    lib.ssd_occupancy.restype = i
     lib.ssd_error_string.argtypes = [i]
     lib.ssd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def occupancy(head_dim: int) -> int:
+    """CTAs of ``ssd_chunk_heads_kernel`` one SM of the current card holds at
+    this head dim (builds the library on first use)."""
+    return _library().ssd_occupancy(head_dim)
 
 
 def _check(x, dt, a_neg, b, c) -> None:
@@ -131,7 +146,7 @@ def _decay(cum: torch.Tensor) -> torch.Tensor:
     cumh = cum.transpose(2, 3)
     causal = torch.ones(cl, cl, dtype=torch.bool, device=cum.device).tril()
     diff = cumh[..., :, None] - cumh[..., None, :]
-    return torch.exp(torch.where(causal, diff, -torch.inf))
+    return _exp(torch.where(causal, diff, -torch.inf))
 
 
 def _weights(x, dt, a_neg, b, c):
@@ -150,15 +165,18 @@ def ssd_chunk_plain(x, dt, a_neg, b, c):
     see the module docstring). Returns ``(y_intra, states, cum_last)``."""
     cum, _, _, w = _weights(x, dt, a_neg, b, c)
     y = torch.einsum("bchij,bcjhp->bcihp", w, x)
-    v = torch.exp(cum[:, :, -1:] - cum) * dt                    # (B, NC, CL, NH)
+    v = _exp(cum[:, :, -1:] - cum) * dt                         # (B, NC, CL, NH)
     states = torch.einsum("bcjhp,bcjn->bchpn", x * v[..., None], b)
     return y, states, cum[:, :, -1]
 
 
 def ssd_chunk_cuda(x, dt, a_neg, b, c):
-    """K7 on the card: one launch of ``ssd_chunk_kernel``. Same contract as
-    ``ssd_chunk_plain``; x, b and c must have a contiguous last dimension
-    (every other stride is read as it is)."""
+    """K7 on the card: ``ssd_chunk_cb_kernel`` forms C·Bᵀ once per (batch
+    row, chunk) and every head's cum, dt and v rows into scratch tensors,
+    then ``ssd_chunk_heads_kernel`` forms every head's y_intra and state
+    from them. Same contract as ``ssd_chunk_plain``; x, b and c must have a
+    contiguous last dimension (every other stride is read as it is). The
+    two launches are one call of K7: ``LAUNCHES["ssd_chunk"]`` counts 1."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk_cuda takes CUDA tensors, got {x.device}")
     if any(t.stride(-1) != 1 for t in (x, b, c)):
@@ -167,15 +185,19 @@ def ssd_chunk_cuda(x, dt, a_neg, b, c):
     lib = _library()
     bsz, nc, cl, nh, hp = x.shape
     n = b.shape[-1]
+    clp = -(-cl // TILE) * TILE
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((bsz, nc, cl, nh, hp), **f32)
     states = torch.empty((bsz, nc, nh, hp, n), **f32)
     cum_last = torch.empty((bsz, nc, nh), **f32)
     if bsz * nc * nh == 0:
         return y, states, cum_last
+    scores = torch.empty((bsz * nc, clp, clp), **f32)   # C·Bᵀ, causal tiles
+    rows = torch.empty((bsz * nc, nh, 3, clp), **f32)   # cum, dt and v per head
     rc = lib.ssd_chunk_forward(
         x.data_ptr(), dt.data_ptr(), a_neg.data_ptr(), b.data_ptr(), c.data_ptr(),
-        y.data_ptr(), states.data_ptr(), cum_last.data_ptr(),
+        y.data_ptr(), states.data_ptr(), cum_last.data_ptr(), scores.data_ptr(),
+        rows.data_ptr(),
         bsz, nc, cl, nh, hp, n,
         *x.stride()[:4], *dt.stride(), *a_neg.stride(), *b.stride()[:3], *c.stride()[:3],
         _build.stream(x.device))
@@ -241,7 +263,7 @@ def ssd_chunk_bwd(x, dt, a_neg, b, c, gy, gstates, gcum_last):
     gb = torch.einsum("bcij,bcin->bcjn", gscores, c)
     # The terminal state Σ_j v_j·x_j ⊗ b_j.
     cumh = cum.transpose(2, 3)
-    e = torch.exp(cumh[..., -1:] - cumh)
+    e = _exp(cumh[..., -1:] - cumh)
     v = e * dth
     gsb = torch.einsum("bchpn,bcjn->bchjp", gstates, b)       # (B, NC, NH, CL, HP)
     gx = (gx + v[..., None] * gsb).transpose(2, 3)

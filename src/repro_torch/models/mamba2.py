@@ -32,6 +32,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels._math import exp as _exp
 from repro_torch.models.layers import (DEFAULT_DTYPE, Params, cross_entropy,
                                        dense_init, einsum, embed_tokens,
                                        init_lm_params, meta_param, rms_norm,
@@ -131,7 +132,7 @@ def block_forward(cfg: ModelConfig, lp: Params, x: torch.Tensor) -> torch.Tensor
     # F.softplus returns x itself above its threshold 20, where the
     # reference's max(x, 0) + log1p(exp(−|x|)) rounds to x in f32 too.
     dt = F.softplus(dt.to(torch.float32) + lp["dt_bias"])
-    a_neg = -torch.exp(lp["A_log"])
+    a_neg = -_exp(lp["A_log"])
     xh = xs.reshape(*xs.shape[:2], nh, hp)
     y, _ = _ssd_chunked(xh, dt, a_neg, b_in, c_in, cfg.ssm_chunk)
     y = y + lp["D"][:, None] * xh  # skip

@@ -544,10 +544,12 @@ def test_cuda_flash_attention_refuses_bad_operands(cuda_device):
 
 # (B, S, CL, NH, HP, N): chip_smoke.py's cases: the mamba2 path's shape, S not
 # a multiple of CL (a padded chunk), the CPU tests' smoke shape, a 4096-token
-# prompt of 16 chunks.
+# prompt of 16 chunks, CL 100 (not a multiple of the kernel's 16- or 64-row
+# tiles) over three chunks, and HP 128 with N 256 (the largest the kernel
+# takes).
 SSD_CASES = [(32, 256, 256, 32, 64, 128), (3, 300, 128, 5, 64, 128), (8, 32, 32, 16, 32, 16),
-             (1, 4096, 256, 32, 64, 128)]
-SSD_IDS = ["path", "ragged", "smoke", "prefill4096"]
+             (1, 4096, 256, 32, 64, 128), (4, 250, 100, 8, 64, 128), (2, 512, 256, 4, 128, 256)]
+SSD_IDS = ["path", "ragged", "smoke", "prefill4096", "cl100", "hp128-n256"]
 
 
 def _ssd_inputs(bsz, s, nh, hp, n, dev, seed=0):
@@ -560,7 +562,9 @@ def _ssd_inputs(bsz, s, nh, hp, n, dev, seed=0):
 def _close_to_max(got, want, rtol=1e-5):
     """K7 against its plain version: rtol 1e-5 plus 1e-5 of the largest
     entry; the two sum C·Bᵀ, W·x and the state in other orders (cuBLAS
-    GEMMs in the plain version) and share cum (both sum it in f64)."""
+    GEMMs in the plain version; 3×TF32 products on the tensor cores, each
+    within ~2^-21 of the f32 product, in the kernel) and share cum (both
+    sum it in f64)."""
     torch.testing.assert_close(got, want, rtol=rtol, atol=rtol * float(want.abs().max()))
 
 
@@ -602,6 +606,114 @@ def test_cuda_ssd_chunk_reads_strided_operands(cuda_device):
                                 c.contiguous())
     for g, w in zip(got, want):
         _close_to_max(g, w)
+
+
+# (CL, HP, N) over every pairing of the kernel's row-tile and template
+# cases: CL 100 is neither a multiple of the 16-row mma tile nor of the
+# 64-row CTA tile; HP 32, 64, 128 are the three accumulator sizes; N 16 to
+# 256 one to two state slices. Two batch rows of three chunks, the last one
+# padded, so every call has NC > 1.
+SSD_SHAPES = [(cl, hp, n) for cl in (32, 100, 128, 256) for hp in (32, 64, 128)
+              for n in (16, 64, 128, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cl,hp,n", SSD_SHAPES, ids=[f"cl{c}-hp{h}-n{m}" for c, h, m in SSD_SHAPES])
+def test_cuda_ssd_chunk_shapes(cuda_device, cl, hp, n):
+    """K7 against its plain version at every (CL, HP, N) pairing, and its
+    cum_last bitwise equal to ``chunk_cumsum`` (the cross-chunk correction
+    and the backward recompute cum with it)."""
+    from repro_torch.kernels import ssd_scan as tssd
+
+    bsz, nh = 2, 3
+    x, dt, a, b, c = _ssd_inputs(bsz, 3 * cl - cl // 3, nh, hp, n, cuda_device, seed=cl + hp + n)
+    xc, dtc, bc, cc = tssd.to_chunks(x, dt, b, c, cl)
+    assert xc.shape[1] == 3
+    a2 = a.expand(bsz, nh)
+    got = tssd.ssd_chunk(xc, dtc, a2, bc, cc)
+    want = tssd.ssd_chunk_plain(xc, dtc, a2, bc, cc)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        _close_to_max(g, w)
+    assert torch.equal(got[2], tssd.chunk_cumsum(dtc * a2[:, None, None, :])[:, :, -1])
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunk_vmap_folds_unaligned_operands(cuda_device):
+    """Under vmap, x vmapped over its second axis (the fold copies it), b and
+    c sliced out of one (…, 2N + 1) tensor (odd row stride, bases not
+    16-byte aligned) and HP 30: the kernel reads them in 4-byte pieces into
+    the same layout and equals the plain version client by client."""
+    from repro_torch.kernels import ssd_scan as tssd
+
+    n_clients, bsz, nc, cl, nh, hp, n = 3, 2, 2, 100, 3, 30, 20
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    r = lambda *shape: torch.randn(shape, generator=gen, device=cuda_device)
+    x = r(bsz, n_clients, nc, cl, nh, hp + 1)[..., :hp]
+    dt = torch.nn.functional.softplus(-2.0 + 0.5 * r(n_clients, bsz, nc, cl, nh))
+    a = -torch.exp(0.3 * r(n_clients, bsz, nh))
+    bc_in = r(n_clients, bsz, nc, cl, 2 * n + 1)
+    b, c = bc_in[..., 1:n + 1], bc_in[..., n + 1:]
+    assert b.stride(-2) % 4 and b.storage_offset() % 4 and c.storage_offset() % 4
+    before = tssd.LAUNCHES["ssd_chunk"]
+    got = torch.func.vmap(tssd.SSDChunk.apply, in_dims=(1, 0, 0, 0, 0))(x, dt, a, b, c)
+    torch.cuda.synchronize()
+    assert tssd.LAUNCHES["ssd_chunk"] == before + 1
+    for k in range(n_clients):
+        want = tssd.ssd_chunk_plain(x[:, k].contiguous(), dt[k], a[k], b[k].contiguous(),
+                                    c[k].contiguous())
+        for g, w in zip(got, want):
+            _close_to_max(g[k], w)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_large_decay_spread_stays_finite(cuda_device):
+    """dt = 2, A = −1 over one 256-row chunk: a log-decay spread of 512, far
+    past the ~88 at which exp of an unmasked exponent overflows. The kernel
+    masks before the exponential: finite, equal to its plain version and,
+    through ``ops.ssd_forward``, to the exact recurrence."""
+    from repro_torch.kernels import ssd_scan as tssd
+
+    bsz, s, nh, hp, n = 2, 256, 2, 32, 16
+    x, _, _, b, c = _ssd_inputs(bsz, s, nh, hp, n, cuda_device, seed=9)
+    dt = torch.full((bsz, s, nh), 2.0, device=cuda_device)
+    a = torch.full((nh,), -1.0, device=cuda_device)
+    xc, dtc, bc, cc = tssd.to_chunks(x, dt, b, c, s)
+    got = tssd.ssd_chunk(xc, dtc, a.expand(bsz, nh), bc, cc)
+    want = tssd.ssd_chunk_plain(xc, dtc, a.expand(bsz, nh), bc, cc)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        _close_to_max(g, w)
+    y, h = ops.ssd_forward(x, dt, a, b, c, chunk=s)
+    ry, rh = tssd.ssd_recurrence(x, dt, a, b, c)
+    _close_to_max(y, ry, rtol=1e-4)
+    _close_to_max(h, rh, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunk_error_against_f64_at_the_path(cuda_device):
+    """At the mamba2 path's shape: the kernel's largest error against the
+    plain version in f64, beside the f32 plain version's own (printed as one
+    JSON line). The gate stays the kernel against the f32 plain version."""
+    import json
+
+    from repro_torch.kernels import ssd_scan as tssd
+
+    bsz, s, nh, hp, n = SSD_CASES[0][0], SSD_CASES[0][1], SSD_CASES[0][3], SSD_CASES[0][4], \
+        SSD_CASES[0][5]
+    x, dt, a, b, c = _ssd_inputs(bsz, s, nh, hp, n, cuda_device, seed=1)
+    xc, dtc, bc, cc = tssd.to_chunks(x, dt, b, c, s)
+    args = (xc, dtc, a.expand(bsz, nh), bc, cc)
+    got = tssd.ssd_chunk(*args)
+    plain = tssd.ssd_chunk_plain(*args)
+    exact = tssd.ssd_chunk_plain(*(t.double() for t in args))
+    report = {}
+    for name, g, p, e in zip(("y_intra", "states", "cum_last"), got, plain, exact):
+        _close_to_max(g, p)
+        report[name] = {"kernel_vs_f64": float((g.double() - e).abs().max()),
+                        "plain_f32_vs_f64": float((p.double() - e).abs().max()),
+                        "max_abs": float(e.abs().max())}
+    print("K7 f64 " + json.dumps(report))
 
 
 @pytest.mark.cuda

@@ -10,7 +10,7 @@ tensor runs MKL's vector math library (VML) on each thread's share. The
 first VML call of a process, made on several threads at once, can compute
 one share at ~1.5e-4 relative accuracy; ``--torch-only`` shows it with
 torch alone. The plain path now takes exp and log without VML
-(``kernels/flash_attention._exp``), so this test holds it to the one-thread
+(``kernels/_math.exp``), so this test holds it to the one-thread
 result. Each child process starts fresh, computes the vmap∘grad first on
 the default thread count, then on one thread, then the multi-threaded call
 again, and reports the (client, batch, KV head) groups where the first call

@@ -71,6 +71,7 @@ from repro_torch.fed import (FederatedSpec, HierarchyConfig, edge_budgets,
                              partition_edges, run_federated)
 from repro_torch.kernels import score_select as tss
 from repro_torch.models import build_model
+from test_torch_slice import jax_compile_cache  # noqa: F401  (autouse fixture)
 
 ROUNDS = 3
 EDGES = 3

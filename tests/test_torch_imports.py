@@ -3,6 +3,7 @@
 ``repro``; and a run asked for the card never continues on the CPU."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -100,18 +101,52 @@ SLICE6_MODULES = ("repro_torch.core.theory", "repro_torch.core.selection",
                   "repro_torch.data.synthetic", "repro_torch.examples.paper_reproduction")
 
 
+# One fresh interpreter loads torch and numpy, then forks a child for each
+# module; the child imports that module alone and reports what of JAX and the
+# reference package sys.modules then holds. One interpreter start-up (most of
+# the cost, importing torch) serves every module.
+_FORK_EACH = """
+import json, os, sys
+import numpy, torch
+found = {}
+for module in sys.argv[1:]:
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.close(r)
+        try:
+            __import__(module)
+            bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
+        except BaseException as e:
+            bad = ['import failed: ' + repr(e)]
+        os.write(w, json.dumps(bad).encode())
+        os._exit(0)
+    os.close(w)
+    out = b''
+    while chunk := os.read(r, 1 << 16):
+        out += chunk
+    os.close(r)
+    os.waitpid(pid, 0)
+    found[module] = json.loads(out)
+print(json.dumps(found))
+"""
+
+
+@pytest.fixture(scope="module")
+def loaded_by_import():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", _FORK_EACH, *SLICE6_MODULES],
+                          capture_output=True, text=True, timeout=240, env=env)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
 @pytest.mark.parametrize("module", SLICE6_MODULES)
-def test_slice6_module_loads_no_jax_and_no_reference(module):
-    """Imported alone in a fresh interpreter, the module pulls in neither JAX
+def test_slice6_module_loads_no_jax_and_no_reference(module, loaded_by_import):
+    """Imported alone in a fresh process (a child forked from an interpreter
+    that has loaded only torch and numpy), the module pulls in neither JAX
     nor the reference package (the scan above checks import statements;
     this checks what an import actually loads)."""
     path = ROOT / "src" / (module.replace(".", "/") + ".py")
     assert path.exists()
-    code = (f"import sys, {module}\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro'))\n"
-            "assert not bad, bad\n")
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          timeout=120, env=env)
-    assert proc.returncode == 0, proc.stderr
+    assert loaded_by_import[module] == [], loaded_by_import[module]

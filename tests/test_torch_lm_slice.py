@@ -31,6 +31,7 @@ from repro_torch.fed import FederatedSpec, run_federated
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.models import build_model
 
+from test_torch_slice import jax_compile_cache  # noqa: F401  (autouse fixture)
 from test_torch_slice import reference_draws
 
 ROUNDS = 3

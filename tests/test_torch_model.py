@@ -31,6 +31,17 @@ from repro_torch.fed import FederatedSpec, batched, client, server
 from repro_torch.models import build_model, layers, resnet
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite's workers share the cores, and torch's
+    threads waiting on one another under that load made these tests many
+    times slower than alone."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def models(d_model=8):
     jm = jax_build_model(dataclasses.replace(
         jax_smoke_variant(jax_get_config("resnet18-cifar10")), d_model=d_model))

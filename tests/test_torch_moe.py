@@ -63,6 +63,7 @@ from repro_torch.kernels import moe_gmm as tgmm
 from repro_torch.models import build_model, moe
 
 from test_torch_flash import bf16_ulp, np32
+from test_torch_slice import jax_compile_cache  # noqa: F401  (autouse fixture)
 from test_torch_slice import reference_draws
 
 ARCH = "kimi-k2-1t-a32b"

@@ -20,6 +20,18 @@ from repro.core import selection as jselection
 from repro.core import state as jstate
 from repro_torch.core import scoring, selection, state
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite's workers share the cores, and torch's
+    threads waiting on one another under that load made these tests many
+    times slower than alone."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -40,6 +40,7 @@ from repro_torch.data import make_vision_data
 from repro_torch.examples.paper_reproduction import METHODS, run_methods
 from repro_torch.fed import engine, server
 from repro_torch.models import build_model
+from test_torch_slice import jax_compile_cache  # noqa: F401  (autouse fixture)
 
 K = 40
 

@@ -2,9 +2,9 @@
 
 ``sharded_score_select_plain`` runs K1 and K2's plain versions on each
 client shard of a gloo process group. World size 1 runs in this process;
-world sizes 2, 4 and 8 run in processes spawned with
-``torch.multiprocessing`` (a ``file://`` rendezvous), each group joined
-under its own timeout so that a hang fails the test. Every rank's cohort
+world sizes 2, 4 and 8 run as groups of the first 2, 4 and 8 of 8 processes
+spawned once with ``torch.multiprocessing`` (a ``file://`` rendezvous),
+joined under a timeout so that a hang fails the test. Every rank's cohort
 must be the reference's on the same Gumbel row — its fused
 ``ops.heterosel_topm`` (Pallas in interpret mode) and its
 ``ops.heterosel_topm_sharded`` on a one-device mesh — with probabilities
@@ -75,21 +75,29 @@ def run_sharded(inp, group, plain=True):
               staleness_override=inp["stale"])
 
 
+WORLDS = (2, 4, 8)
+
+
 def _rank(rank, world, rendezvous, gumbels, out_dir):
-    """One rank of a spawned gloo group: every case through the sharded
-    select, results saved for the parent."""
+    """One rank of a spawned gloo group of ``world`` ranks: for each size in
+    WORLDS the ranks below it form a group of that size and run every case
+    through the sharded select on it; results saved for the parent."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
                             world_size=world, rank=rank)
     try:
-        out = [tuple(x.clone() for x in run_sharded(port_inputs(case, g), dist.group.WORLD))
-               for case, g in zip(CASES, gumbels)]
-        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        for size in WORLDS:
+            group = dist.new_group(list(range(size)))   # every rank takes part in new_group
+            if rank < size:
+                out = [tuple(x.clone() for x in run_sharded(port_inputs(case, g), group))
+                       for case, g in zip(CASES, gumbels)]
+                torch.save(out, os.path.join(out_dir, f"world{size}-rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
 def spawn_group(world, tmp_path, gumbels):
+    """Results by group size and rank, from one spawn of ``world`` ranks."""
     ctx = mp.start_processes(_rank, args=(world, str(tmp_path / "rendezvous"), gumbels,
                                           str(tmp_path)),
                              nprocs=world, join=False, start_method="spawn")
@@ -101,13 +109,16 @@ def spawn_group(world, tmp_path, gumbels):
             p.kill()
         pytest.fail(f"world size {world}: the gloo group did not finish in "
                     f"{JOIN_TIMEOUT_S} s")
-    return [torch.load(tmp_path / f"rank{r}.pt") for r in range(world)]
+    return {size: [torch.load(tmp_path / f"world{size}-rank{r}.pt") for r in range(size)]
+            for size in WORLDS}
 
 
 @pytest.fixture(scope="module")
 def references():
     """The reference's Gumbel row, fused and one-device sharded results per
-    case (Pallas in interpret mode)."""
+    case (Pallas in interpret mode). Each call is jitted whole: run op by op,
+    its interpreted kernels compile hundreds of small programs one by one;
+    jitted, they give the same bits at a fraction of the cost."""
     import jax
     import jax.numpy as jnp
 
@@ -131,11 +142,13 @@ def references():
             sj = jbf16(sj)
         key = jax.random.PRNGKey(k + m)
         tau = jax_tau(jnp.int32(T), JaxSel(num_selected=m))
-        kw = dict(interpret=True,
-                  staleness_override=jnp.asarray(arrays["stale"]) if override else None)
-        fused = jops.heterosel_topm(sj, jnp.int32(T), tau, m, key, JaxCfg(), **kw)
-        sharded = jops.heterosel_topm_sharded(sj, jnp.int32(T), tau, m, key, JaxCfg(),
-                                              mesh=mesh, **kw)
+        stale = jnp.asarray(arrays["stale"]) if override else None
+        fused = jax.jit(lambda s, tau, key, stale: jops.heterosel_topm(
+            s, jnp.int32(T), tau, m, key, JaxCfg(), interpret=True,
+            staleness_override=stale))(sj, tau, key, stale)
+        sharded = jax.jit(lambda s, tau, key, stale: jops.heterosel_topm_sharded(
+            s, jnp.int32(T), tau, m, key, JaxCfg(), mesh=mesh, interpret=True,
+            staleness_override=stale))(sj, tau, key, stale)
         gumbel = np.array(jax.random.gumbel(key, (k,), jnp.float32))
         out.append((gumbel, [tuple(np.asarray(x) for x in r) for r in (fused, sharded)]))
     return out
@@ -176,9 +189,17 @@ def test_one_rank_is_the_fused_path_bitwise_and_the_reference(case, references,
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("world", [2, 4, 8])
-def test_world_sizes_match_the_reference(world, references, tmp_path):
-    per_rank = spawn_group(world, tmp_path, [g for g, _ in references])
+@pytest.fixture(scope="module")
+def spawned(references, tmp_path_factory):
+    """One spawn of max(WORLDS) gloo ranks serves every world size: a
+    process start-up (importing torch) is most of a rank's cost."""
+    return spawn_group(max(WORLDS), tmp_path_factory.mktemp("gloo"),
+                       [g for g, _ in references])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_world_sizes_match_the_reference(world, references, spawned):
+    per_rank = spawned[world]
     for i, case in enumerate(CASES):
         first = per_rank[0][i]
         for r in range(1, world):

@@ -42,6 +42,39 @@ from repro_torch.data import make_vision_data
 from repro_torch.fed import run_federated
 from repro_torch.models import build_model
 
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_compile_cache(tmp_path_factory):
+    """JAX's persistent compilation cache in a directory of the module's
+    own, while the module runs (the modules that hold several reference runs
+    import it). Each run of the reference builds its own jitted closures, so
+    runs that differ only in selector or executor compile the same programs
+    again; with the cache a repeat loads the executable compiled the first
+    time, and gives the same bits. The worker's settings come back after."""
+    from jax.experimental.compilation_cache import compilation_cache
+
+    names = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")
+    saved = {name: getattr(jax.config, name) for name in names}
+    jax.config.update(names[0], str(tmp_path_factory.mktemp("jax_compile_cache")))
+    jax.config.update(names[1], 0.0)
+    compilation_cache.reset_cache()
+    yield
+    for name, value in saved.items():
+        jax.config.update(name, value)
+    compilation_cache.reset_cache()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite's workers share the cores, and torch's
+    threads waiting on one another under that load made these tests many
+    times slower than alone."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 ROUNDS = 3
 FED_KW = dict(num_clients=12, participation=0.5, rounds=ROUNDS, local_epochs=2,
               local_batch=16, lr=0.3, mu=0.1, dirichlet_alpha=0.1, seed=0)

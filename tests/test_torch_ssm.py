@@ -53,6 +53,7 @@ from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.models import build_model, mamba2
 
 from test_torch_flash import bf16_ulp, np32
+from test_torch_slice import jax_compile_cache  # noqa: F401  (autouse fixture)
 from test_torch_slice import reference_draws
 
 ARCH = "mamba2-370m"
