@@ -14,7 +14,8 @@ Phases, in order; any failure raises and the script exits nonzero:
      mma instructions.
   2. Kernels against their plain PyTorch versions on the card, f32 and bf16
      state, staleness override off and on: K1 + K2 for K ∈ {12, 4133, 2^20}
-     and m ∈ {6, 64, 1024} (m ≤ K), selected sets equal; K3 for the same K;
+     and m ∈ {6, 64, 1024} (m ≤ K), K2's candidates (a radix select) bit
+     for bit and the fused cohorts equal in order; K3 for the same K;
      K4 for the edge layouts in K4_CASES, padding slots exactly 0.0. Scores
      and probabilities must agree to 1e-5 relative. K5 for the cases in
      FLASH_CASES (f32 and bf16, causal and not, window 256, GQA 14/2 and
@@ -36,9 +37,10 @@ Phases, in order; any failure raises and the script exits nonzero:
      entry). K8's offset: K = 2^20 (f32 and bf16) split into K8_WORLD
      client shards of this process, K1 and K2 on each shard with its global
      offset and limit against their plain versions with the same offset
-     (candidate ids exactly), and the shards merged by the collectives'
+     (candidates bit for bit), and the shards merged by the collectives'
      arithmetic on local tensors, which must select the single-device
-     fused cohort: the only world size above 1 one card can check. Then
+     fused cohort, in order: the only world size above 1 one card can
+     check. Then
      each kernel and its plain version are timed: CUDA events
      around back-to-back calls (what a caller waits, host dispatch included)
      and torch.profiler's device time; K5 also beside torch's
@@ -93,6 +95,9 @@ Phases, in order; any failure raises and the script exits nonzero:
      NCCL group (made here) each select once at every K with the launch
      counts zeroed before and read after; fused and sharded bitwise equal,
      all three cohorts equal as sets; each timed (select_ms, device ms).
+     K8's collective calls per call are counted (at most 4), and at K =
+     10^6 the fused and K8 calls are broken down under torch.profiler by
+     pack, K1, K2, statistics, normalizer, merge and all-gathers.
   9. The paper's Table I on full-width ResNet-18: its five selectors
      (heterosel, heterosel_mult, oort, power_of_choice, random) on phase 3's
      federation, flat, TABLE1_ROUNDS rounds, the same draws for each; each
@@ -352,6 +357,15 @@ def device_ms(fn, kernel: str | None, iters: int = 20):
     return us / iters / 1e3 if us > 0 else None
 
 
+def check_candidates_bitwise(where: str, out_k, out_p) -> None:
+    """K2's candidates (cval, cidx) must be its plain version's bit for bit."""
+    import torch
+
+    if not (torch.equal(out_k[3].view(torch.int32), out_p[3].view(torch.int32))
+            and torch.equal(out_k[4], out_p[4])):
+        raise AssertionError(f"{where}: K2's candidates differ from the plain version's")
+
+
 def phase_kernels(dev):
     """Phase 2: every case against the plain versions, then the timings."""
     import torch
@@ -394,20 +408,22 @@ def phase_kernels(dev):
                              check_close(f"{where} exp", out_k[1], out_p[1], atol=1e-30),
                              check_close(f"{where} (m_b, l_b)", out_k[2], out_p[2]))
                     err["score_select"] = max(err["score_select"], e2)
-                    # The whole fused selection through kernels vs plain.
+                    check_candidates_bitwise(where, out_k, out_p)
+                    # The whole fused selection through kernels vs plain: the
+                    # same cohort in the same order.
                     fkw = dict(round_idx=t, tau=tau, m=m, gumbel=gumbel, cfg=cfg,
                                staleness_override=stale)
                     sel_k, probs_k, scores_k = tss.fused_score_select(*rows, **fkw)
                     sel_p, probs_p, scores_p = tss.fused_score_select_plain(*rows, **fkw)
-                    if set(sel_k.tolist()) != set(sel_p.tolist()):
-                        raise AssertionError(f"{where}: selected sets differ")
+                    if not torch.equal(sel_k, sel_p):
+                        raise AssertionError(f"{where}: selected cohorts differ")
                     check_close(f"{where} probs", probs_k, probs_p, atol=1e-30)
                     check_close(f"{where} fused scores", scores_k, scores_p, atol=1e-6)
                     ncases += 1
     torch.cuda.synchronize()
-    print(f"phase 2: {ncases} cases, kernels == plain (sets equal, rtol {RTOL}); "
-          f"max abs err K1 {err['score_stats']:.3e}, K2 {err['score_select']:.3e}",
-          flush=True)
+    print(f"phase 2: {ncases} cases, kernels == plain (K2's candidates bitwise, cohorts "
+          f"equal in order, rtol {RTOL}); max abs err K1 {err['score_stats']:.3e}, "
+          f"K2 {err['score_select']:.3e}", flush=True)
     check_probs_kernels(dev, err, t, tau, cfg)
 
     timings = []
@@ -1379,23 +1395,22 @@ def phase_k8_offsets(dev) -> float:
             out_p = tss.score_select_plain(stacked, glob, gpad, **kw)
             err = max(err, check_close(f"{where} K2 scores", out_k[0], out_p[0], atol=1e-6),
                       check_close(f"{where} K2 exp", out_k[1], out_p[1], atol=1e-30),
-                      check_close(f"{where} K2 (m_b, l_b)", out_k[2], out_p[2]),
-                      check_close(f"{where} K2 candidates", out_k[3], out_p[3], atol=1e-6))
-            if not torch.equal(out_k[4], out_p[4]):
-                raise AssertionError(f"{where}: candidate ids differ from the plain version")
+                      check_close(f"{where} K2 (m_b, l_b)", out_k[2], out_p[2]))
+            check_candidates_bitwise(where, out_k, out_p)
         kw = dict(round_idx=t, tau=tau, m=m, gumbel=gumbel, cfg=cfg)
         sel_s, probs_s, scores_s = tss.sharded_score_select_in_process(*rows, world=world,
                                                                        **kw)
         sel_f, probs_f, scores_f = tss.fused_score_select(*rows, **kw)
-        if set(sel_s.tolist()) != set(sel_f.tolist()):
+        if not torch.equal(sel_s, sel_f):
             raise AssertionError(f"K8 W={world} in one process, {dtype}: the merged cohort "
                                  "is not the single-device cohort")
         check_close(f"K8 W={world} {dtype} probs", probs_s, probs_f, atol=1e-30)
         check_close(f"K8 W={world} {dtype} scores", scores_s, scores_f, atol=1e-6)
     torch.cuda.synchronize()
     print(f"phase 2: K8 offsets, K={k} in {world} shards, f32 and bf16: K1 and K2 with "
-          f"each shard's offset == plain (rtol {RTOL}, candidate ids exact), max abs err "
-          f"{err:.3e}; the in-process merge selects the single-device cohort", flush=True)
+          f"each shard's offset == plain (rtol {RTOL}, candidates bitwise), max abs err "
+          f"{err:.3e}; the in-process merge selects the single-device cohort in order",
+          flush=True)
     return err
 
 
@@ -1414,6 +1429,101 @@ def k8_work(k: int, itemsize: int, m: int) -> int:
     intermediates and the candidates are the design's choice, not the
     function's, and are not counted; on one rank no collective moves bytes."""
     return 8 * k * itemsize + 4 * k + 2 * 4 * k + 4 * m
+
+
+# Every collective of torch.distributed that a K8 call could make.
+COLLECTIVES = ("all_gather", "all_gather_coalesced", "all_gather_into_tensor",
+               "all_gather_object", "all_gather_single", "all_reduce", "all_reduce_coalesced",
+               "all_to_all", "all_to_all_single", "barrier", "batch_isend_irecv", "broadcast",
+               "broadcast_object_list", "gather", "gather_object", "irecv", "isend", "recv",
+               "recv_object_list", "reduce", "reduce_scatter", "reduce_scatter_single",
+               "reduce_scatter_tensor", "scatter", "scatter_object_list", "send",
+               "send_object_list")
+
+
+def count_collectives(fn) -> dict:
+    """Calls of each torch.distributed collective made by one call of ``fn``."""
+    import torch.distributed as dist
+
+    counts, saved = {}, {}
+    for name in COLLECTIVES:
+        if hasattr(dist, name):
+            saved[name] = getattr(dist, name)
+
+            def counted(*args, _fn=saved[name], _name=name, **kwargs):
+                counts[_name] = counts.get(_name, 0) + 1
+                return _fn(*args, **kwargs)
+
+            setattr(dist, name, counted)
+    try:
+        fn()
+    finally:
+        for name, f in saved.items():
+            setattr(dist, name, f)
+    return counts
+
+
+# Phase 8's breakdown: the functions of kernels/score_select.py under each
+# label (none nests in another), and K8's all-gathers as "collectives".
+# K1 and K2 launch through ctypes, outside any PyTorch operator, so the
+# profiler ties their kernels to no range: their device time is read by
+# kernel name.
+BREAKDOWN = (("pack", ("_pack",)), ("K1", ("score_stats",)), ("K2", ("score_select",)),
+             ("stats", ("_combine_stats", "_shard_stats", "_global_stats")),
+             ("normalize", ("_normalize", "_shard_normalizer", "_global_normalizer",
+                            "_shard_probs")),
+             ("merge", ("top_candidates", "candidate_keys", "merge_keys")))
+BY_KERNEL = {"K1": "stats_kernel", "K2": "select_kernel"}
+
+
+def profile_breakdown(fn, iters: int = 10) -> dict:
+    """Per call of ``fn`` under torch.profiler: host wall ms, the CUDA
+    kernels' device ms, and for each BREAKDOWN label (and K8's all-gathers)
+    its calls, host ms and device ms (of the kernels launched inside it).
+    The rest of the wall time is the wrappers' own Python and the slices."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import score_select as tss
+
+    def labelled(label, f):
+        def run(*args, **kwargs):
+            with record_function(label):
+                return f(*args, **kwargs)
+        return run
+
+    saved = [(tss, name, label) for label, names in BREAKDOWN for name in names]
+    saved = [(obj, name, label, getattr(obj, name)) for obj, name, label in saved]
+    saved.append((tss._GroupComm, "gather", "collectives", tss._GroupComm.gather))
+    labels = [lb for lb, _ in BREAKDOWN] + ["collectives"]
+    try:
+        for obj, name, label, f in saved:
+            setattr(obj, name, labelled(label, f))
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for obj, name, _, f in saved:
+            setattr(obj, name, f)
+    # The ranges also show on the device's timeline (as spans, not kernels).
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.key not in labels]
+    out = {"wall_ms": wall / iters,
+           "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3 / iters}
+    events = prof.events()
+    for label in labels:
+        evs = [e for e in events if e.name == label and e.device_type == DeviceType.CPU]
+        dev_us = (sum(e.self_device_time_total for e in kernels if BY_KERNEL[label] in e.key)
+                  if label in BY_KERNEL else sum(e.device_time_total for e in evs))
+        out[label] = {"calls": len(evs) / iters,
+                      "host_ms": sum(e.cpu_time_total for e in evs) / 1e3 / iters,
+                      "device_ms": dev_us / 1e3 / iters}
+    return out
 
 
 def phase_table8(dev):
@@ -1502,7 +1612,7 @@ def phase_table8(dev):
                 tau=dynamic_temperature(TABLE8_ROUND, SelectorConfig(num_selected=m)),
                 m=m, gumbel=g, cfg=cfg, group=group)
             sel_p, probs_p, scores_p = plain()
-            if set(sel_p.tolist()) != set(sel_s.tolist()):
+            if not torch.equal(sel_p, sel_s):
                 raise AssertionError(f"K={k}: K8's cohort is not its plain version's")
             err = max(check_close(f"K={k} K8 probs vs plain", probs_s, probs_p, atol=1e-30),
                       check_close(f"K={k} K8 scores vs plain", scores_s, scores_p, atol=1e-6))
@@ -1512,17 +1622,25 @@ def phase_table8(dev):
             for name, fn in methods.items():
                 row[f"{name}_ms"] = time_ms(fn, iters)
                 row[f"{name}_device_ms"] = device_ms(fn, None, iters=10)
+            counts = count_collectives(methods["sharded"])
+            row["sharded_collectives_per_call"] = sum(counts.values())
+            if row["sharded_collectives_per_call"] > 4:
+                raise AssertionError(f"K={k}: K8 made {counts} collective calls, over 4")
             if k == TABLE8_KS[-1]:
                 row["sharded_plain_ms"] = time_ms(plain, iters)
                 row["sharded_plain_device_ms"] = device_ms(plain, None, iters=10)
                 row["sharded_bound_ms"] = k8_work(k, 2, m) / HBM_BYTES_PER_S * 1e3
+                for name in ("fused", "sharded"):
+                    print(f"breakdown {json.dumps({'K': k, 'method': name})} "
+                          + json.dumps(profile_breakdown(methods[name])), flush=True)
             rows.append(row)
             print("table8 " + json.dumps(row), flush=True)
     finally:
         dist.destroy_process_group()
     print(f"phase 8: Table 8 control plane, K {list(TABLE8_KS)}, bf16 state: fused == "
-          f"sharded (one-rank NCCL) bitwise, sharded == its plain version (cohort, probs "
-          f"and scores rtol {RTOL}), cohorts equal as sets; launches "
+          f"sharded (one-rank NCCL) bitwise, sharded == its plain version (cohort in order, "
+          f"probs and scores rtol {RTOL}), cohorts equal as sets; collectives per K8 call "
+          f"{[r['sharded_collectives_per_call'] for r in rows]}; launches "
           f"{json.dumps(launches)}", flush=True)
     return launches, rows
 
@@ -1735,6 +1853,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/score_select.py:448",
         **launches("sharded_score_select"),
         "max_abs_err": max([k8_err] + [r["sharded_vs_plain_err"] for r in table8]),
+        "collectives_per_call": main_row["sharded_collectives_per_call"],
         "ms": main_row["sharded_ms"], "device_ms": main_row["sharded_device_ms"],
         "plain_ms": main_row["sharded_plain_ms"],
         "plain_device_ms": main_row["sharded_plain_device_ms"],

@@ -37,21 +37,32 @@
 // Design:
 //  * K1-K3: one CTA of 256 threads per block of BLOCK <= 2048 clients. The
 //    TPU version streamed 32768-client blocks through VMEM; on Hopper a
-//    block must fit shared memory for the in-block sort (2048 x 8 B = 16 KB)
-//    and K = 2^20 must give enough CTAs (512) to cover 132 SMs several
-//    times. The selected set does not depend on BLOCK: a global top-m
-//    element is beaten by at most m-1 others, so it survives its block's
-//    top-min(m, B).
+//    block keeps its z in shared memory (2048 x 4 B = 8 KB) and K = 2^20
+//    must give enough CTAs (512) to cover 132 SMs several times. The
+//    selected set does not depend on BLOCK: a global top-m element is
+//    beaten by at most m-1 others, so it survives its block's top-min(m, B).
 //  * Threads walk a block with stride 256, so a warp reads 32 neighbouring
 //    columns of a row: coalesced. bf16 rows are widened with
 //    __bfloat162float in registers; no f32 copy of the state is made.
 //  * Block reductions (min/max/sum) use warp shuffles, then one shared-memory
 //    slot per warp.
 //  * K2 keeps z = s/tau in shared memory between its passes, so scores are
-//    computed once; the perturbed logits z + g and their column ids are then
-//    bitonic-sorted in shared memory (value descending, index ascending) and
-//    the first min(m, B) are written out. K3 stops after the exps and the
-//    block's (m_b, l_b); the host merges the normalizers.
+//    computed once, then overwrites it with the perturbed logits z + g. Its
+//    candidates are the block's top mb = min(m, B) by (value descending in
+//    IEEE total order, column ascending), written in column order; the host
+//    merge orders them (kernels/score_select.py merge_candidates), so no
+//    sort is needed. A radix select finds them: the values' order-preserving
+//    uint32 bits, 8 at a time from the top, each round a 256-bin histogram
+//    (shared-memory atomics, aggregated over a warp's equal bins with
+//    __match_any_sync, so the -1e30 padding keys of a block do not
+//    serialise) of the entries that still match the prefix, scanned by one
+//    warp for the bin that holds the mb-th largest. It stops once the bin's
+//    entries are exactly the ones still wanted. What is left: every entry
+//    above the prefix, and the first `want` entries on it by column. Each
+//    warp then compacts a contiguous span of columns with ballots and popc
+//    prefixes, after one exchange of the warps' counts. mb = B takes every
+//    column. K3 stops after the exps and the block's (m_b, l_b); the host
+//    merges the normalizers.
 //  * K4: one CTA per edge. An edge slice can hold 32768 clients (K = 2^20,
 //    E = 32), more than a pass of shared memory, so a block-stride loop
 //    over the slice takes the place of the TPU's one-shot VMEM block:
@@ -197,12 +208,107 @@ __device__ __forceinline__ float client_score(const T* st, int64_t kpad, int64_t
          + cfg.w_norm * (npen - 1.f);
 }
 
-// a goes before b: larger value first, ties by smaller index.
-__device__ __forceinline__ bool goes_before(float va, int ia, float vb, int ib) {
-  return va > vb || (va == vb && ia < ib);
+// Order-preserving bits: ord(a) > ord(b) iff a > b in IEEE total order (-0.0
+// below +0.0, NaN above +inf), the order of score_select.py's order_keys.
+__device__ __forceinline__ uint32_t order_bits(float v) {
+  const uint32_t u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// kSample = true is K2, false is K3 (no noise, no sort, no candidates).
+// K2's candidates: the block's top mb keys by (value descending, column
+// ascending), written to cval/cidx in column order (see the header).
+// key[0, block) holds z + g; block is a multiple of 32 and >= mb.
+__device__ void block_candidates(const float* key, int block, int mb, int64_t first,
+                                 float* __restrict__ cval, int* __restrict__ cidx) {
+  __shared__ int hist[256];
+  __shared__ uint32_t sel_prefix, sel_mask;
+  __shared__ int sel_want, sel_done;
+  __shared__ int warp_gt[kWarps], warp_eq[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  // Entries whose bits under `mask` equal `prefix` are still in play; `want`
+  // of them are to be taken. mask = 0 takes every column (mb == block).
+  uint32_t prefix = 0u, mask = 0u;
+  int want = mb;
+  if (mb < block) {
+    for (int shift = 24; shift >= 0; shift -= 8) {
+      for (int b = threadIdx.x; b < 256; b += kThreads) hist[b] = 0;
+      __syncthreads();
+      for (int i = threadIdx.x; i < block; i += kThreads) {  // whole warps
+        const uint32_t u = order_bits(key[i]);
+        const int bin = (u & mask) == prefix ? (int)((u >> shift) & 255u) : -1;
+        const unsigned peers = __match_any_sync(0xffffffffu, bin);
+        if (bin >= 0 && lane == __ffs(peers) - 1) atomicAdd(&hist[bin], __popc(peers));
+      }
+      __syncthreads();
+      if (warp == 0) {
+        // Lane l holds bins 255-8l down to 248-8l; a prefix sum over the
+        // lanes counts the entries in higher bins.
+        int c[8], sum = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) { c[j] = hist[255 - 8 * lane - j]; sum += c[j]; }
+        int incl = sum;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int v = __shfl_up_sync(0xffffffffu, incl, o);
+          if (lane >= o) incl += v;
+        }
+        const int excl = incl - sum;
+        if (excl < want && want <= incl) {  // exactly one lane
+          int above = excl, j = 0;
+          while (above + c[j] < want) above += c[j++];
+          sel_prefix = prefix | ((uint32_t)(255 - 8 * lane - j) << shift);
+          sel_mask = mask | (255u << shift);
+          sel_want = want - above;
+          sel_done = c[j] == want - above;
+        }
+      }
+      __syncthreads();
+      prefix = sel_prefix;
+      mask = sel_mask;
+      want = sel_want;
+      if (sel_done) break;  // read by every thread before the next write
+    }
+  }
+
+  // Compaction in column order. Warp w owns columns [w*span, (w+1)*span).
+  const int span = max(32, block / kWarps);
+  const int lo = warp * span;
+  const bool owns = lo < block;
+  int ngt = 0, neq = 0;
+  if (owns) {
+    for (int s = 0; s < span; s += 32) {
+      const uint32_t um = order_bits(key[lo + s + lane]) & mask;
+      ngt += __popc(__ballot_sync(0xffffffffu, um > prefix));
+      neq += __popc(__ballot_sync(0xffffffffu, um == prefix));
+    }
+  }
+  if (lane == 0) { warp_gt[warp] = ngt; warp_eq[warp] = neq; }
+  __syncthreads();
+  if (!owns) return;
+  int gt_before = 0, eq_seen = 0;
+  for (int w = 0; w < warp; ++w) { gt_before += warp_gt[w]; eq_seen += warp_eq[w]; }
+  int pos = gt_before + min(eq_seen, want);
+  const unsigned below = (1u << lane) - 1u;
+  for (int s = 0; s < span; s += 32) {
+    const int i = lo + s + lane;
+    const float v = key[i];
+    const uint32_t um = order_bits(v) & mask;
+    const unsigned eq = __ballot_sync(0xffffffffu, um == prefix);
+    const bool take = um > prefix || (um == prefix && eq_seen + __popc(eq & below) < want);
+    const unsigned takers = __ballot_sync(0xffffffffu, take);
+    if (take) {
+      const int p = pos + __popc(takers & below);
+      cval[p] = v;
+      cidx[p] = (int)(first + i);
+    }
+    pos += __popc(takers);
+    eq_seen += __popc(eq);
+  }
+}
+
+// kSample = true is K2, false is K3 (no noise, no candidates).
 template <typename T, bool kSample>
 __global__ void __launch_bounds__(kThreads)
 select_kernel(const T* __restrict__ st, const float* __restrict__ gumbel,
@@ -211,9 +317,7 @@ select_kernel(const T* __restrict__ st, const float* __restrict__ gumbel,
               float* __restrict__ scores, float* __restrict__ e_out,
               float* __restrict__ part, float* __restrict__ cval,
               int* __restrict__ cidx) {
-  extern __shared__ float smem[];
-  float* key = smem;                              // [block] z, then z + g
-  int* idx = reinterpret_cast<int*>(smem + block);  // [block] column (K2 only)
+  extern __shared__ float key[];                  // [block] z, then z + g
   __shared__ float red[kWarps + 1];
   __shared__ float g[4];
   if (threadIdx.x < 4) g[threadIdx.x] = glob[threadIdx.x];
@@ -238,43 +342,17 @@ select_kernel(const T* __restrict__ st, const float* __restrict__ gumbel,
     const float e = off + c < klim ? expf(z - m_b) : 0.f;
     e_out[c] = e;
     lsum += e;
-    if constexpr (kSample) {
-      // Ranking z + g ranks log p + g: the softmax shift is common to all.
-      key[i] = z + gumbel[c];
-      idx[i] = i;
-    }
+    // Ranking z + g ranks log p + g: the softmax shift is common to all.
+    if constexpr (kSample) key[i] = z + gumbel[c];
   }
-  const float l_b = block_reduce(lsum, 0.f, SumOp(), red);
+  const float l_b = block_reduce(lsum, 0.f, SumOp(), red);  // syncs: key is complete
   if (threadIdx.x == 0) {
     part[2 * blockIdx.x] = m_b;
     part[2 * blockIdx.x + 1] = l_b;
   }
   if constexpr (kSample) {
-    // Bitonic sort of (key, idx) in shared memory; block is a power of two.
-    for (int size = 2; size <= block; size <<= 1) {
-      for (int stride = size >> 1; stride > 0; stride >>= 1) {
-        __syncthreads();
-        for (int i = threadIdx.x; i < block; i += kThreads) {
-          const int j = i ^ stride;
-          if (j > i) {
-            const float vi = key[i], vj = key[j];
-            const int ii = idx[i], ij = idx[j];
-            const bool first_half = (i & size) == 0;
-            const bool swap = first_half ? goes_before(vj, ij, vi, ii)
-                                         : goes_before(vi, ii, vj, ij);
-            if (swap) {
-              key[i] = vj; key[j] = vi;
-              idx[i] = ij; idx[j] = ii;
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < mb; i += kThreads) {
-      cval[(int64_t)blockIdx.x * mb + i] = key[i];
-      cidx[(int64_t)blockIdx.x * mb + i] = (int)(off + base + idx[i]);
-    }
+    block_candidates(key, block, mb, off + base, cval + (int64_t)blockIdx.x * mb,
+                     cidx + (int64_t)blockIdx.x * mb);
   }
 }
 
@@ -365,7 +443,7 @@ int hs_select(int dtype, const void* stacked, const float* gumbel,
               float decay, const ScoreCfg* cfg, int mb, float* scores, float* e,
               float* part, float* cval, int* cidx, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = static_cast<size_t>(block) * (sizeof(float) + sizeof(int));
+  const size_t smem = static_cast<size_t>(block) * sizeof(float);
   if (dtype == 0) {
     select_kernel<float, true><<<nblocks, kThreads, smem, s>>>(
         static_cast<const float*>(stacked), gumbel, glob, kpad, block, off, klim,

@@ -11,8 +11,8 @@ the sharded select built on two of them.
     the additive scores, the block softmax exponentials with their
     (m_b, l_b) normalizer pair, and its top-min(m, block) Gumbel-perturbed
     candidates. ``_normalize`` merges the normalizers and a top-m over the
-    candidates picks the cohort. ``fused_score_select`` runs K1 then K2: the
-    flat engine's ``heterosel_pallas`` path.
+    candidates (``merge_candidates``) picks the cohort. ``fused_score_select``
+    runs K1 then K2: the flat engine's ``heterosel_pallas`` path.
   * K3 ``score_probs`` (replaces ``_score_kernel``): K2 without the
     sampling. ``fused_score_probs`` runs K1, K3 and ``_normalize`` and
     returns ``(probs, scores)``.
@@ -23,9 +23,10 @@ the sharded select built on two of them.
   * K8 ``sharded_score_select`` (replaces the reference's
     ``sharded_score_select``): K1 and K2 on each client shard of a
     ``torch.distributed`` group, with the shard's global column offset,
-    stitched by an all-reduce of the statistics, the normalizer merge and an
-    all-gather of the candidates. ``SHARDED_LAUNCHES``
-    counts its calls on the card, ``LAUNCHES`` the K1 and K2 launches.
+    stitched by four all-gathers: the statistics, the normalizer pairs, each
+    shard's merged top-m candidates and the probabilities and scores.
+    ``SHARDED_LAUNCHES`` counts its calls on the card, ``LAUNCHES`` the K1
+    and K2 launches.
 
 All four kernels are CUDA C++ for sm_90a (``csrc/score_select.cu``, whose header
 gives their bound and design). Each wrapper below takes its plain PyTorch
@@ -50,8 +51,9 @@ import torch.nn.functional as F
 
 from repro_torch.core.scoring import HeteRoScoreConfig, diversity_decay
 from repro_torch.kernels import _build
+from repro_torch.kernels._math import exp as _exp
 
-MAX_BLOCK = 2048    # clients per CTA: the in-block sort fits 16 KB of smem
+MAX_BLOCK = 2048    # clients per CTA: z of the whole block fits 8 KB of smem
 MIN_BLOCK = 32      # one warp
 BIG = 1e30
 
@@ -246,7 +248,10 @@ def _block_scores_plain(x: torch.Tensor, glob: torch.Tensor, *, t: float,
     statistics or (4, E, 1) for per-edge statistics over an (E, seg) view.
     The op order matches ``client_score`` in csrc/score_select.cu. Every
     divisor is a tensor on ``x``'s device: a CPU scalar divisor would let
-    PyTorch's CUDA division multiply by a reciprocal instead.
+    PyTorch's CUDA division multiply by a reciprocal instead. exp is
+    ``kernels/_math.exp`` here and in every plain version below: on the
+    CPU it does not go through MKL's vector math (ROADMAP queue 3 (f)), on
+    the card it is ``torch.exp``.
     """
     lmin, lmax, avgsq, hmax = glob[0], glob[1], glob[2], glob[3]
     loss = x[ROW_LOSS]
@@ -260,7 +265,7 @@ def _block_scores_plain(x: torch.Tensor, glob: torch.Tensor, *, t: float,
     div = x[ROW_JS] * decay
     # Eq (5)
     m = torch.where(has_mom, (loss2 - loss) / (loss2 + 1e-8), 0.0)
-    mom = 2.0 / (1.0 + torch.exp(-5.0 * m)) - 0.5
+    mom = 2.0 / (1.0 + _exp(-5.0 * m)) - 0.5
     # Eq (6)
     f = 1.0 + cfg.eta * x[ROW_CNT] / hmax
     fair = 1.0 / (f * f)
@@ -273,7 +278,7 @@ def _block_scores_plain(x: torch.Tensor, glob: torch.Tensor, *, t: float,
     st = 1.0 + cfg.gamma * torch.log1p(delta)
     # Eq (11)
     r = torch.where(has_loss, x[ROW_SQ] / (avgsq + 1e-8), 1.0)
-    npen = 1.0 - cfg.alpha * (2.0 / (1.0 + torch.exp(-3.0 * r)) - 1.0)
+    npen = 1.0 - cfg.alpha * (2.0 / (1.0 + _exp(-3.0 * r)) - 1.0)
     # Eq (1)
     return (cfg.w_value * v + cfg.w_diversity * div + cfg.w_momentum * mom
             + cfg.w_fairness * (fair - 1.0) + cfg.w_staleness * (st - 1.0)
@@ -294,8 +299,17 @@ def _block_softmax_plain(stacked, glob, *, k: int, block: int, t: float,
     tau_t = torch.tensor(tau, dtype=torch.float32, device=dev)
     z = torch.where(valid, (s / tau_t).view(nblocks, block), -BIG)
     m_b = z.amax(1)
-    e = torch.where(valid, torch.exp(z - m_b[:, None]), 0.0)
+    e = torch.where(valid, _exp(z - m_b[:, None]), 0.0)
     return s, z, e, torch.stack([m_b, e.sum(1)], dim=1)
+
+
+def order_keys(v: torch.Tensor) -> torch.Tensor:
+    """int32 keys ordered as the f32 values ``v`` are in IEEE total order:
+    −0.0 below +0.0 and NaN above +inf, as XLA's ``lax.top_k`` ranks them on
+    the CPU. K2's kernel ranks by the same order (``order_bits`` in
+    csrc/score_select.cu: these keys + 2^31 as uint32)."""
+    b = v.contiguous().view(torch.int32)
+    return torch.where(b >= 0, b, b ^ 0x7FFFFFFF)
 
 
 def score_select_plain(stacked, glob, gumbel, *, k: int, block: int, t: float,
@@ -303,17 +317,19 @@ def score_select_plain(stacked, glob, gumbel, *, k: int, block: int, t: float,
                        cfg: HeteRoScoreConfig, mb: int, off: int = 0):
     """Plain version of K2. Returns ``(scores (kpad,), e (kpad,),
     part (nblocks, 2) = (m_b, l_b), cval (nblocks, mb) f32,
-    cidx (nblocks, mb) int32)``; candidates are ordered by value descending,
-    ties by column ascending, and carry global ids (``off`` + column)."""
+    cidx (nblocks, mb) int32)``. Each block's candidates are its top mb
+    perturbed values z + g by (value descending in ``order_keys``' order,
+    column ascending), listed in ascending column order, with global ids
+    (``off`` + column)."""
     s, z, e, part = _block_softmax_plain(stacked, glob, k=k, block=block, t=t,
                                          tau=tau, use_ov=use_ov, decay=decay, cfg=cfg,
                                          off=off)
     nblocks = z.shape[0]
     pert = z + gumbel.view(nblocks, block)
-    vals, loc = torch.sort(pert, dim=1, descending=True, stable=True)
+    top = torch.sort(order_keys(pert), dim=1, descending=True, stable=True).indices
+    loc = torch.sort(top[:, :mb], dim=1).values
     first = torch.arange(nblocks, device=stacked.device)[:, None] * block + off
-    return (s, e.reshape(-1), part,
-            vals[:, :mb].contiguous(), (loc[:, :mb] + first).to(torch.int32))
+    return (s, e.reshape(-1), part, pert.gather(1, loc), (loc + first).to(torch.int32))
 
 
 def _check_glob(glob: torch.Tensor, stacked: torch.Tensor) -> None:
@@ -428,7 +444,7 @@ def segment_probs_plain(stacked, sizes, *, seg: int, t: float, tau: float,
     s = _block_scores_plain(x, glob, t=t, decay=decay, use_ov=use_ov, cfg=cfg)
     tau_t = torch.tensor(tau, dtype=torch.float32, device=dev)
     z = torch.where(valid, s / tau_t, -BIG)
-    e = torch.where(valid, torch.exp(z - z.amax(1, keepdim=True)), 0.0)
+    e = torch.where(valid, _exp(z - z.amax(1, keepdim=True)), 0.0)
     probs = e / torch.clamp_min(e.sum(1, keepdim=True), 1e-30)
     return probs.reshape(-1), torch.where(valid, s, 0.0).reshape(-1)
 
@@ -467,6 +483,47 @@ def segment_probs(stacked, sizes, *, seg: int, t: float, tau: float,
 
 
 # ---------------------------------------------------------------------------
+# The candidate merge
+# ---------------------------------------------------------------------------
+
+MAX_CLIENTS = 2**31 - 1   # candidate ids are int32
+
+
+def top_candidates(cval: torch.Tensor, cidx: torch.Tensor, n: int):
+    """(values, ids) of the top n of K2's candidates by value descending, then
+    id ascending, in that order. The candidates must be listed in ascending
+    id order, as K2 lists them (blocks in id order, each block's candidates
+    by column): then a stable sort by value orders equal values by id."""
+    flat = cval.reshape(-1)
+    pos = torch.sort(order_keys(flat), descending=True, stable=True).indices[:n]
+    return flat[pos], cidx.reshape(-1)[pos]
+
+
+def merge_candidates(cval: torch.Tensor, cidx: torch.Tensor, m: int) -> torch.Tensor:
+    """The cohort from K2's candidates (``top_candidates``' ids). That is the
+    reference's ``lax.top_k`` over its candidate layout
+    (``score_select.py:394``, :539), where a block's candidates sit by value
+    then column and blocks by id, so equal values go to the smaller id.
+    ``torch.topk`` on the values would leave ties unordered."""
+    return top_candidates(cval, cidx, m)[1]
+
+
+def candidate_keys(vals: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """One unique int64 key per candidate, ``order_keys(value)·2^32 +
+    (2^31 − 1 − id)``: a larger key is a larger value, then a smaller id. K8
+    gathers its shards' top candidates as such keys."""
+    return (order_keys(vals).to(torch.int64) * 2**32
+            + (MAX_CLIENTS - ids.to(torch.int64)))
+
+
+def merge_keys(keys: torch.Tensor, m: int) -> torch.Tensor:
+    """The int32 ids packed into the m largest of the unique
+    ``candidate_keys``, largest first (there are no ties to break)."""
+    top = torch.topk(keys.reshape(-1), m).values
+    return (MAX_CLIENTS - (top & 0xFFFFFFFF)).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
 # The fused entry points
 # ---------------------------------------------------------------------------
 
@@ -477,7 +534,7 @@ def _normalize(e_flat: torch.Tensor, part: torch.Tensor, nblocks: int,
     normalizer merge; with one block this is e / Σe)."""
     m_b = part[:, 0]
     l_b = part[:, 1]
-    scale = torch.exp(m_b - m_b.amax())
+    scale = _exp(m_b - m_b.amax())
     lglob = torch.clamp_min(torch.sum(l_b * scale), 1e-30)
     return (e_flat.view(nblocks, block) * scale[:, None] / lglob).reshape(-1)
 
@@ -510,9 +567,7 @@ def _fused_select(stats_fn: Callable, select_fn: Callable, *rows, round_idx, tau
                  (0, stacked.shape[1] - k))
     scores, e, part, cval, cidx = select_fn(stacked, glob, gpad, mb=min(m, blk), **kw)
     probs = _normalize(e, part, nblocks, blk)[:k]
-    pos = torch.topk(cval.reshape(-1), m).indices
-    selected = cidx.reshape(-1)[pos]
-    return selected, probs, scores[:k]
+    return merge_candidates(cval, cidx, m), probs, scores[:k]
 
 
 def _fused_probs(stats_fn: Callable, probs_fn: Callable, *rows, round_idx, tau,
@@ -547,8 +602,8 @@ def fused_score_select(*rows, round_idx, tau, m: int, gumbel: torch.Tensor,
 
     ``rows`` are the eight (K,) state vectors in ``score_inputs`` order;
     ``gumbel`` is the (K,) f32 noise. Returns ``(selected (m,) int32,
-    probs (K,), scores (K,))``; ``selected`` is a set (its order is not
-    part of the contract).
+    probs (K,), scores (K,))``; ``selected`` is ordered by perturbed value
+    descending, then id ascending, as the reference's (``merge_candidates``).
     """
     return _fused_select(score_stats, score_select, *rows, round_idx=round_idx,
                          tau=tau, m=m, gumbel=gumbel, cfg=cfg,
@@ -613,11 +668,10 @@ def segmented_score_probs_plain(*rows, sizes, round_idx, tau,
 # ---------------------------------------------------------------------------
 
 SHARD_ALIGN = 128   # a shard's width is a multiple of this (the reference's LANE)
-MAX_CLIENTS = 2**31 - 1   # candidate ids are int32
 
 
 class _GroupComm:
-    """K8's collectives over a ``torch.distributed`` process group: this
+    """K8's all-gather over a ``torch.distributed`` process group: this
     process holds the one shard of its rank. CUDA tensors need an NCCL
     group, CPU tensors a gloo group."""
 
@@ -633,26 +687,21 @@ class _GroupComm:
         self.world = dist.get_world_size(group)
         self.ranks = (dist.get_rank(group),)
 
-    def _reduce(self, parts, op):
-        t = parts[0].clone()
-        self.dist.all_reduce(t, op=op, group=self.group)
-        return t
-
-    def max(self, parts):
-        return self._reduce(parts, self.dist.ReduceOp.MAX)
-
-    def sum(self, parts):
-        return self._reduce(parts, self.dist.ReduceOp.SUM)
-
     def gather(self, parts):
-        out = [torch.empty_like(parts[0]) for _ in range(self.world)]
-        self.dist.all_gather(out, parts[0].contiguous(), group=self.group)
-        return torch.cat(out)
+        """One all-gather: every rank's tensor, stacked in rank order, into
+        one output tensor (no per-rank copies)."""
+        t = parts[0].contiguous()
+        out = t.new_empty((self.world,) + tuple(t.shape))
+        # all_gather_single is all_gather_into_tensor's newer name.
+        gather = (getattr(self.dist, "all_gather_single", None)
+                  or self.dist.all_gather_into_tensor)
+        gather(out.view((-1,) + tuple(t.shape[1:])), t, group=self.group)
+        return out
 
 
 class _LocalComm:
-    """The same collectives' arithmetic over all ``world`` shards held in one
-    process: what one card can check of a world size above 1."""
+    """The same all-gather over all ``world`` shards held in one process:
+    what one card can check of a world size above 1."""
 
     def __init__(self, world: int):
         if world < 1:
@@ -660,14 +709,8 @@ class _LocalComm:
         self.world = world
         self.ranks = range(world)
 
-    def max(self, parts):
-        return torch.stack(parts).amax(0)
-
-    def sum(self, parts):
-        return torch.stack(parts).sum(0)
-
     def gather(self, parts):
-        return torch.cat(parts)
+        return torch.stack(parts)
 
 
 def shard_layout(k: int, world: int, block: Optional[int] = None):
@@ -700,6 +743,39 @@ def shard_operands(rows, gumbel, staleness_override, *, rank: int, world: int,
     return stacked, F.pad(g, (0, local_pad - n)), off, klim
 
 
+def _shard_stats(st: torch.Tensor) -> torch.Tensor:
+    """A shard's (−lmin, lmax, hmax, Σ‖Δw‖², nobs) from its K1 table."""
+    return torch.stack([-st[:, ST_LMIN].amin(), st[:, ST_LMAX].amax(),
+                        st[:, ST_HMAX].amax(), st[:, ST_SUMSQ].sum(),
+                        st[:, ST_NOBS].sum()])
+
+
+def _global_stats(g: torch.Tensor) -> torch.Tensor:
+    """(lmin, lmax, avgsq, hmax) from the (W, 5) gathered shard statistics,
+    the reference's pmin/pmax/psum (:496-500), the same on every rank."""
+    return torch.stack([-g[:, 0].amax(), g[:, 1].amax(),
+                        g[:, 3].sum() / torch.clamp_min(g[:, 4].sum(), 1.0),
+                        torch.clamp_min(g[:, 2].amax(), 1.0)])
+
+
+def _shard_normalizer(part: torch.Tensor) -> torch.Tensor:
+    """A shard's (M, L) = (max m_b, Σ_b l_b·exp(m_b − M)) from its K2 pairs."""
+    mx = part[:, 0].amax()
+    return torch.stack([mx, torch.sum(part[:, 1] * _exp(part[:, 0] - mx))])
+
+
+def _global_normalizer(ml: torch.Tensor):
+    """(mglob, lglob) from the (W, 2) gathered (M, L) pairs (:529-531)."""
+    mglob = ml[:, 0].amax()
+    return mglob, torch.clamp_min(torch.sum(ml[:, 1] * _exp(ml[:, 0] - mglob)), 1e-30)
+
+
+def _shard_probs(e: torch.Tensor, part: torch.Tensor, mglob, lglob) -> torch.Tensor:
+    """A shard's probabilities: its exps rescaled to the global normalizer."""
+    scale = _exp(part[:, 0] - mglob)
+    return (e.view(part.shape[0], -1) * scale[:, None] / lglob).reshape(-1)
+
+
 def _sharded_select(stats_fn: Callable, select_fn: Callable, comm, *rows, round_idx,
                     tau, m: int, gumbel: torch.Tensor, cfg: HeteRoScoreConfig,
                     staleness_override=None, block: Optional[int] = None):
@@ -710,37 +786,34 @@ def _sharded_select(stats_fn: Callable, select_fn: Callable, comm, *rows, round_
         raise ValueError(f"K={k} exceeds the int32 candidate ids ({MAX_CLIENTS})")
     local_k, blk, nblocks, _ = shard_layout(k, comm.world, block)
     t, tau, decay = _scalars(round_idx, tau, cfg)
+    mb = min(m, blk)
     kw = dict(block=blk, t=t, tau=tau, use_ov=staleness_override is not None,
-              decay=decay, cfg=cfg)
+              decay=decay, cfg=cfg, mb=mb)
     shards = []
     for rank in comm.ranks:
         stacked, gpad, off, klim = shard_operands(
             rows, gumbel, staleness_override, rank=rank, world=comm.world, block=block)
         shards.append((stacked, gpad, off, klim,
                        stats_fn(stacked, k=klim, block=blk, off=off)))
-    # Pass-1 statistics: one MAX of (−lmin, lmax, hmax), one SUM of
-    # (Σ‖Δw‖², nobs) — the reference's pmin/pmax/psum (:496-500).
-    mx = comm.max([torch.stack([-st[:, ST_LMIN].amin(), st[:, ST_LMAX].amax(),
-                                st[:, ST_HMAX].amax()]) for *_, st in shards])
-    sm = comm.sum([torch.stack([st[:, ST_SUMSQ].sum(), st[:, ST_NOBS].sum()])
-                   for *_, st in shards])
-    glob = torch.stack([-mx[0], mx[1], sm[0] / torch.clamp_min(sm[1], 1.0),
-                        torch.clamp_min(mx[2], 1.0)])
-    outs = [select_fn(stacked, glob, gpad, k=klim, off=off, mb=min(m, blk), **kw)
+    # Four all-gathers, each reduced alike on every rank. 1: the pass-1
+    # statistics.
+    glob = _global_stats(comm.gather([_shard_stats(st) for *_, st in shards]))
+    outs = [select_fn(stacked, glob, gpad, k=klim, off=off, **kw)
             for stacked, gpad, off, klim, _ in shards]
-    # Softmax normalizer merge over (m_b, l_b) (:529-531).
-    mglob = comm.max([part[:, 0].amax().reshape(1) for _, _, part, _, _ in outs])
-    lglob = torch.clamp_min(comm.sum(
-        [torch.sum(part[:, 1] * torch.exp(part[:, 0] - mglob)).reshape(1)
-         for _, _, part, _, _ in outs]), 1e-30)
-    probs = [(e.view(nblocks, blk) * torch.exp(part[:, 0] - mglob)[:, None] / lglob
-              ).reshape(-1)[:local_k] for _, e, part, _, _ in outs]
-    # Every shard sees every candidate: the same global top-m on each (:537-539).
-    cval = comm.gather([o[3].reshape(-1) for o in outs])
-    cidx = comm.gather([o[4].reshape(-1) for o in outs])
-    selected = cidx[torch.topk(cval, m).indices]
-    return (selected, comm.gather(probs)[:k],
-            comm.gather([o[0][:local_k] for o in outs])[:k])
+    # 2: the softmax normalizer, merged over the shards' (M, L) pairs.
+    mglob, lglob = _global_normalizer(
+        comm.gather([_shard_normalizer(o[2]) for o in outs]))
+    # 3: each shard's own top min(m, candidates), as merge keys; the same
+    # merge of all of them on every rank (:537-539).
+    keep = min(m, nblocks * mb)
+    keys = comm.gather([candidate_keys(*top_candidates(o[3], o[4], keep))
+                        for o in outs])
+    selected = merge_keys(keys, m)
+    # 4: probabilities and scores.
+    ps = comm.gather([
+        torch.stack([_shard_probs(e, part, mglob, lglob), scores])[:, :local_k]
+        for scores, e, part, _, _ in outs])
+    return selected, ps[:, 0].reshape(-1)[:k], ps[:, 1].reshape(-1)[:k]
 
 
 def sharded_score_select(*rows, round_idx, tau, m: int, gumbel: torch.Tensor,
@@ -752,12 +825,15 @@ def sharded_score_select(*rows, round_idx, tau, m: int, gumbel: torch.Tensor,
     Every rank passes the same (K,) rows and Gumbel row (the reference draws
     that row inside, at :474); rank r scores clients
     ``[r·local_k, min((r+1)·local_k, K))`` through K1 and K2 with that
-    offset (``shard_operands``). Three collectives stitch the shards: a MAX
-    and a SUM of the pass-1 statistics, the (m_b, l_b) normalizer merge,
-    and an all-gather of each shard's top-min(m, block) candidates, cut to
-    the global top-m. Returns ``(selected (m,) int32, probs (K,),
-    scores (K,))``, the same on every rank. CUDA state needs an NCCL group,
-    CPU state a gloo group.
+    offset (``shard_operands``). Four all-gathers stitch the shards, each
+    reduced in rank order on every rank: the pass-1 statistics; each shard's
+    normalizer pair (max m_b, Σ l_b·exp(m_b − max)); each shard's top
+    min(m, candidates) (``top_candidates``, as the fused path's merge takes
+    them) as ``candidate_keys``, merged into the cohort; and the
+    probabilities and scores. Returns ``(selected (m,) int32, probs (K,),
+    scores (K,))``, the same on every rank; on one rank bitwise
+    ``fused_score_select``. CUDA state needs an NCCL group, CPU state a gloo
+    group.
     """
     comm = _GroupComm(group, rows[0].device)
     out = _sharded_select(score_stats, score_select, comm, *rows,

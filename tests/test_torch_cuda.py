@@ -84,7 +84,8 @@ def test_cuda_kernels_match_plain(cuda_device, k, m, dtype, override):
 
 @pytest.mark.cuda
 def test_cuda_candidates_sorted_like_plain(cuda_device):
-    """Per-block candidates come out value-descending, ties by column."""
+    """Per-block candidates come out as the plain version lists them: with
+    mb = block, every column in column order."""
     k, blk = 256, 64
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     rows = random_rows(k, torch.float32, gen, t=3)
@@ -97,6 +98,77 @@ def test_cuda_candidates_sorted_like_plain(cuda_device):
     want = tss.score_select_plain(stacked, glob, gumbel, **kw)
     torch.testing.assert_close(got[3], want[3], **TOL)
     assert torch.equal(got[4], want[4])
+
+
+# K2's candidates (a radix select, no sort) against its plain version, bit
+# for bit: every m below, cut to the block.
+K2_MS = (1, 6, 31, 32, 33, 1000, 2048)
+K2_BLOCKS = (32, 64, 128, 256, 512, 1024, 2048)
+
+
+def assert_k2_candidates_bitwise(stacked, glob, gumbel, *, k, block, use_ov, off=0):
+    for mb in sorted({min(m, block) for m in K2_MS}):
+        kw = dict(k=k, block=block, off=off, t=9.0, tau=0.95, use_ov=use_ov, decay=2.0,
+                  cfg=HeteRoScoreConfig(), mb=mb)
+        before = tss.LAUNCHES["score_select"]
+        got = tss.score_select(stacked, glob, gumbel, **kw)
+        torch.cuda.synchronize()
+        assert tss.LAUNCHES["score_select"] == before + 1
+        want = tss.score_select_plain(stacked, glob, gumbel, **kw)
+        where = f"block {block} mb {mb} off {off}"
+        assert torch.equal(got[3].view(torch.int32), want[3].view(torch.int32)), where
+        assert torch.equal(got[4], want[4]), where
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("override", [False, True], ids=["counter", "override"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("block", K2_BLOCKS)
+def test_cuda_k2_candidates_bitwise(cuda_device, block, dtype, override):
+    """Three full blocks and a ragged fourth (its tail is padding)."""
+    k = 3 * block + block // 2 + 5
+    gen = torch.Generator(device=cuda_device).manual_seed(block + 2 * override)
+    rows = random_rows(k, dtype, gen, t=9)
+    stale = 30 * torch.rand(k, generator=gen, device=cuda_device) if override else None
+    blk, _, kpad = tss._layout(k, block)
+    assert blk == block
+    stacked = tss._pack(rows, stale, k, kpad)
+    glob = tss._combine_stats(tss.score_stats_plain(stacked, k=k, block=blk))
+    gumbel = torch.nn.functional.pad(gumbel_noise(gen, k), (0, kpad - k))
+    assert_k2_candidates_bitwise(stacked, glob, gumbel, k=k, block=blk, use_ov=override)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_k2_candidates_of_equal_keys_and_of_a_shard_past_k(cuda_device, dtype):
+    """Every client one state and no noise: each block's keys are all equal
+    (the last block's padding equal among itself), so the candidates are
+    its first columns. A shard past K is all padding: its first columns."""
+    k = 5000
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    rows = [r[:1].expand(k).contiguous() for r in random_rows(k, dtype, gen, t=9)]
+    for block in (32, 256, 2048):
+        _, _, kpad = tss._layout(k, block)
+        stacked = tss._pack(rows, None, k, kpad)
+        glob = tss._combine_stats(tss.score_stats_plain(stacked, k=k, block=block))
+        gumbel = torch.zeros(kpad, device=cuda_device)
+        assert_k2_candidates_bitwise(stacked, glob, gumbel, k=k, block=block, use_ov=False)
+    k, world = 384, 8   # shards 3-7 hold no client
+    gumbel = gumbel_noise(gen, k)
+    rows = random_rows(k, dtype, gen, t=9)
+    _, blk, _, _ = tss.shard_layout(k, world)
+    for rank in (2, 3, 7):
+        stacked, gpad, off, klim = tss.shard_operands(rows, gumbel, None, rank=rank,
+                                                      world=world)
+        glob = tss._combine_stats(tss.score_stats_plain(stacked, k=klim, block=blk, off=off))
+        assert_k2_candidates_bitwise(stacked, glob, gpad, k=klim, block=blk,
+                                     use_ov=False, off=off)
+        if off >= k:
+            want = torch.arange(off, off + blk, dtype=torch.int32, device=cuda_device)
+            got = tss.score_select(stacked, glob, gpad, k=klim, block=blk, off=off, t=9.0,
+                                   tau=0.95, use_ov=False, decay=2.0,
+                                   cfg=HeteRoScoreConfig(), mb=blk)[4]
+            assert torch.equal(got[0], want)
 
 
 @pytest.mark.cuda

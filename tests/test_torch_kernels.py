@@ -5,11 +5,14 @@ same Gumbel noise.
 On the CPU the port's wrappers take their plain PyTorch versions; the CUDA
 kernels are held against those plain versions in tests/test_torch_cuda.py.
 
-Tolerances: selected sets are compared exactly (as sets: the two sorts may
-order ties differently); scores and probabilities to 1e-5, which covers the
+Tolerances: selected cohorts are compared exactly, as sets and, where the
+test says so, in order (``merge_candidates`` orders them as the reference's
+``lax.top_k``); scores and probabilities to 1e-5, which covers the
 different f32 exp/log1p implementations and summation orders of XLA and
 PyTorch.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -18,6 +21,7 @@ torch = pytest.importorskip("torch")
 
 import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
 
 from repro.core.scoring import HeteRoScoreConfig as JaxScoreCfg
 from repro.core.selection import SelectorConfig as JaxSelCfg
@@ -107,6 +111,8 @@ def test_plain_matches_pallas_interpret(k, m, block, dtype, override):
 
     assert sel_t.shape == (m,) and len(set(sel_t.tolist())) == m
     assert set(sel_t.tolist()) == set(np.asarray(sel_j).tolist())
+    # In order too: by perturbed value descending, as lax.top_k returns them.
+    assert sel_t.tolist() == np.asarray(sel_j).tolist()
     np.testing.assert_allclose(scores_t.numpy(), np.asarray(scores_j), **TOL)
     np.testing.assert_allclose(probs_t.numpy(), np.asarray(probs_j), **TOL)
     assert float(probs_t.sum()) == pytest.approx(1.0, abs=1e-5)
@@ -142,23 +148,136 @@ def test_stats_plain_matches_stats_kernel_interpret():
     np.testing.assert_allclose(stats_t, stats_j, **TOL)
 
 
-def test_plain_candidates_are_sorted_value_desc_index_asc():
-    """Ties inside a block come out by ascending column, as the kernel's
-    bitonic sort orders them."""
+@pytest.mark.parametrize("mb", [1, 7, 32])
+def test_plain_candidates_are_the_block_top_in_column_order(mb):
+    """Each block's candidates are its top mb perturbed values by (value
+    descending, column ascending), listed by ascending column, with global
+    ids; ties are forced by clients with one state and by a Gumbel row of
+    repeated values."""
     k = 64
-    rows = torch_rows(make_rows(k, seed=1, t=3, dtype="f32"), "f32")
+    rows = make_rows(k, seed=1, t=3, dtype="f32")
+    rows = [np.where(np.arange(k) % 3 == 0, r[0], r) for r in rows]   # every third alike
+    rows = torch_rows(rows, "f32")
     stacked = tss._pack(rows, None, k, k)
     glob = tss._combine_stats(tss.score_stats(stacked, k=k, block=32))
-    gumbel = torch.zeros(k)
-    _, _, _, cval, cidx = tss.score_select(
+    gumbel = torch.from_numpy(np.random.default_rng(2).integers(0, 3, k).astype(np.float32))
+    s, _, _, cval, cidx = tss.score_select(
         stacked, glob, gumbel, k=k, block=32, t=3.0, tau=1.0, use_ov=False,
-        decay=2.0, cfg=HeteRoScoreConfig(), mb=32)
+        decay=2.0, cfg=HeteRoScoreConfig(), mb=mb)
+    pert = (s / 1.0 + gumbel).tolist()
     for b in range(2):
-        v, i = cval[b].numpy(), cidx[b].numpy()
-        assert np.all(v[:-1] >= v[1:])
-        ties = v[:-1] == v[1:]
-        assert np.all(i[:-1][ties] < i[1:][ties])
-        assert set(i.tolist()) == set(range(32 * b, 32 * b + 32))
+        cols = range(32 * b, 32 * b + 32)
+        want = sorted(sorted(cols, key=lambda c: (-pert[c], c))[:mb])
+        assert cidx[b].tolist() == want
+        assert cval[b].tolist() == [pert[c] for c in want]
+        assert len({pert[c] for c in cols}) < 32   # the block has ties
+
+
+# Candidate values with ties, each (values, m): the merge must give
+# lax.top_k's indices, as a set and in order.
+def _tie_cases():
+    every7 = np.zeros(4096, np.float32)
+    every7[::7] = 1.0
+    rng = np.random.default_rng(5)
+    return {
+        "every7": (every7, 100),
+        "all-equal": (np.full(300, 0.25, np.float32), 37),
+        "few-values": (rng.integers(-2, 3, 1000).astype(np.float32), 333),
+        "signed-zeros": (np.array([0.0, -0.0, 1.0, -0.0, 0.0, -1.0, np.inf, -np.inf] * 4,
+                                  np.float32), 20),
+        "padding": (np.where(rng.uniform(size=512) < 0.5, np.float32(-1e30),
+                             rng.gumbel(size=512).astype(np.float32)), 300),
+    }
+
+
+@pytest.mark.parametrize("case", list(_tie_cases()))
+def test_merge_candidates_matches_lax_top_k(case):
+    vals, m = _tie_cases()[case]
+    want = np.asarray(jax.lax.top_k(jnp.asarray(vals), m)[1]).tolist()
+    got = tss.merge_candidates(torch.from_numpy(vals)[None],
+                               torch.arange(len(vals), dtype=torch.int32)[None], m)
+    assert got.dtype == torch.int32
+    assert got.tolist() == want
+
+
+@pytest.mark.parametrize("nblocks,block,mb", [(8, 256, 40), (3, 1024, 128)])
+def test_merge_candidates_matches_lax_top_k_over_the_reference_layout(nblocks, block, mb):
+    """Candidates cut per block by lax.top_k, as the reference's
+    ``_select_kernel`` cuts them, then merged by lax.top_k: the port's merge
+    of the same candidates, each block's listed by column as K2 lists them,
+    gives the reference's cohort, in order."""
+    rng = np.random.default_rng(nblocks)
+    x = rng.integers(0, 6, (nblocks, block)).astype(np.float32)
+    vals, loc = jax.lax.top_k(jnp.asarray(x), mb)
+    ids = loc + jnp.arange(nblocks, dtype=jnp.int32)[:, None] * block
+    m = 3 * mb
+    want = ids.reshape(-1)[jax.lax.top_k(vals.reshape(-1), m)[1]]
+    by_column = np.argsort(np.asarray(ids), axis=1)
+    got = tss.merge_candidates(
+        torch.from_numpy(np.take_along_axis(np.asarray(vals), by_column, 1)),
+        torch.from_numpy(np.take_along_axis(np.asarray(ids), by_column, 1)), m)
+    assert got.tolist() == np.asarray(want).tolist()
+
+
+def reference_select_with_gumbel(rows, gumbel, *, t, tau, m, dtype):
+    """The reference's fused select (``score_select.py:342-394``) on a given
+    Gumbel row instead of one drawn from a key: ``_select_kernel`` in
+    interpret mode on ``gpad``, then its ``lax.top_k`` merge."""
+    k = len(gumbel)
+    blk, nblocks, kpad = jss._layout(k, None)
+    stacked = jss._pack(jax_rows(rows, dtype), None, k, kpad)
+    tf = jnp.float32(t)
+    scal0 = jss._scalar_row(tf, tau, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0, k)
+    stats = jss._run_stats(stacked, scal0, nblocks=nblocks, block=blk, interpret=True)
+    lmin, lmax, avgsq, hmax = jss._combine_stats(stats)
+    scal = jss._scalar_row(tf, tau, 0.0, lmin, lmax, avgsq, hmax, 0.0, k)
+    gpad = jnp.pad(jnp.asarray(gumbel), (0, kpad - k)).reshape(1, kpad)
+    mb_pad = -(-min(m, blk) // jss.LANE) * jss.LANE
+    kernel = functools.partial(jss._select_kernel, cfg=JaxScoreCfg(), block=blk,
+                               mb_pad=mb_pad)
+    _, _, _, cval, cidx = pl.pallas_call(
+        kernel, grid=(nblocks,),
+        in_specs=[pl.BlockSpec((jss.NROWS, blk), lambda i: (0, i)),
+                  pl.BlockSpec((1, jss.LANE), lambda i: (0, 0)),
+                  pl.BlockSpec((1, blk), lambda i: (0, i))],
+        out_specs=[pl.BlockSpec((1, blk), lambda i: (0, i)),
+                   pl.BlockSpec((1, blk), lambda i: (0, i)),
+                   pl.BlockSpec((1, jss.LANE), lambda i: (i, 0)),
+                   pl.BlockSpec((1, mb_pad), lambda i: (i, 0)),
+                   pl.BlockSpec((1, mb_pad), lambda i: (i, 0))],
+        out_shape=[jax.ShapeDtypeStruct((1, kpad), jnp.float32),
+                   jax.ShapeDtypeStruct((1, kpad), jnp.float32),
+                   jax.ShapeDtypeStruct((nblocks, jss.LANE), jnp.float32),
+                   jax.ShapeDtypeStruct((nblocks, mb_pad), jnp.float32),
+                   jax.ShapeDtypeStruct((nblocks, mb_pad), jnp.int32)],
+        interpret=True,
+    )(stacked, scal, gpad)
+    _, pos = jax.lax.top_k(cval.reshape(-1), m)
+    return np.asarray(cidx.reshape(-1)[pos])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("k,m,noise", [(4096, 100, "zero"), (3000, 150, "repeated"),
+                                       (600, 40, "repeated")])
+def test_fused_select_breaks_ties_as_the_reference(k, m, noise, dtype):
+    """Whole-path ties: every client has one state (so one score), the
+    Gumbel row is 0 or a few repeated values. The port's fused select (2048-
+    wide blocks) gives the reference's cohort (one block of up to 32768), in
+    order: equal perturbed values go to the smaller id."""
+    t = 5
+    one = make_rows(1, seed=k, t=t, dtype=dtype)
+    rows = [np.repeat(r, k) for r in one]
+    rng = np.random.default_rng(k + m)
+    gumbel = (np.zeros(k, np.float32) if noise == "zero"
+              else rng.choice(np.array([-0.5, 0.0, 1.25, 2.0], np.float32), k))
+    tau_j = jax_tau(jnp.int32(t), JaxSelCfg())
+    want = reference_select_with_gumbel(rows, gumbel, t=t, tau=tau_j, m=m, dtype=dtype)
+    sel, _, _ = tss.fused_score_select(
+        *torch_rows(rows, dtype), round_idx=t, tau=dynamic_temperature(t, SelectorConfig()),
+        m=m, gumbel=torch.from_numpy(gumbel), cfg=HeteRoScoreConfig())
+    assert sel.tolist() == want.tolist()
+    if noise == "zero":
+        assert want.tolist() == list(range(m))
 
 
 def test_wrappers_check_their_operands():

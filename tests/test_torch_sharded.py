@@ -13,6 +13,7 @@ the ranks must agree bitwise. The JAX package is imported inside the tests
 only, so the spawned ranks import torch and the port alone.
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -267,3 +268,110 @@ def test_group_and_device_must_agree(one_rank_gloo):
         tss.sharded_score_select_plain(*inp["rows"], round_idx=T, tau=1.0, m=0,
                                        gumbel=inp["gumbel"], cfg=HeteRoScoreConfig(),
                                        group=one_rank_gloo)
+
+
+# ---------------------------------------------------------------------------
+# Collectives per call, and the cohort's order
+# ---------------------------------------------------------------------------
+
+# Every collective of torch.distributed that a K8 call could make.
+COLLECTIVES = ("all_gather", "all_gather_coalesced", "all_gather_into_tensor",
+               "all_gather_object", "all_gather_single", "all_reduce", "all_reduce_coalesced",
+               "all_to_all", "all_to_all_single", "barrier", "batch_isend_irecv", "broadcast",
+               "broadcast_object_list", "gather", "gather_object", "irecv", "isend", "recv",
+               "recv_object_list", "reduce", "reduce_scatter", "reduce_scatter_single",
+               "reduce_scatter_tensor", "scatter", "scatter_object_list", "send",
+               "send_object_list")
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """Count the calls of every torch.distributed collective while inside."""
+    counts, saved = {}, {}
+    for name in COLLECTIVES:
+        fn = getattr(dist, name, None)
+        if fn is None:
+            continue
+        saved[name] = fn
+
+        def counted(*args, _fn=fn, _name=name, **kwargs):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _fn(*args, **kwargs)
+
+        setattr(dist, name, counted)
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def collectives_per_case(group):
+    """The collectives one K8 call makes, for each case, over ``group``."""
+    out = []
+    for k, m, dtype, override in CASES:
+        inp = port_inputs((k, m, dtype, override), np.zeros(k, np.float32))
+        with counting_collectives() as counts:
+            run_sharded(inp, group)
+        out.append(dict(counts))
+    return out
+
+
+def _count_rank(rank, world, rendezvous, out_dir):
+    """One rank of a spawned gloo group: for each size in (2, world) the
+    ranks below it count K8's collectives on a group of that size."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                            world_size=world, rank=rank)
+    try:
+        for size in (2, world):
+            group = dist.new_group(list(range(size)))
+            if rank < size:
+                torch.save(collectives_per_case(group),
+                           os.path.join(out_dir, f"count{size}-rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_at_most_four_collectives_per_call(one_rank_gloo, tmp_path):
+    """K8 stitches its shards with at most four collective calls (four
+    all-gathers) at world sizes 1, 2 and 4 over gloo, on every rank."""
+    by_world = {1: [collectives_per_case(one_rank_gloo)]}
+    ctx = mp.start_processes(_count_rank, args=(4, str(tmp_path / "rendezvous4"),
+                                                str(tmp_path)),
+                             nprocs=4, join=False, start_method="spawn")
+    for _ in range(JOIN_TIMEOUT_S):
+        if ctx.join(timeout=1):
+            break
+    else:
+        for p in ctx.processes:
+            p.kill()
+        pytest.fail(f"the gloo group did not finish in {JOIN_TIMEOUT_S} s")
+    for size in (2, 4):
+        by_world[size] = [torch.load(tmp_path / f"count{size}-rank{r}.pt")
+                          for r in range(size)]
+    for world, ranks in by_world.items():
+        for rank, per_case in enumerate(ranks):
+            for case_id, counts in zip(CASE_IDS, per_case):
+                assert 1 <= sum(counts.values()) <= 4, (world, rank, case_id, counts)
+
+
+def test_cohort_order_matches_the_reference(references, spawned, one_rank_gloo):
+    """K8's cohort comes in the reference's order (perturbed value
+    descending, then id): at W = 1, with all shards in one process, and on
+    every spawned world size, against the reference's fused and sharded
+    cohorts."""
+    got = {}
+    for i, (case, (gumbel, _)) in enumerate(zip(CASES, references)):
+        inp = port_inputs(case, gumbel)
+        got[(1, i)] = run_sharded(inp, one_rank_gloo)[0]
+        for world in WORLDS:
+            got[(f"in-process {world}", i)] = tss.sharded_score_select_in_process(
+                *inp["rows"], world=world, round_idx=T,
+                tau=dynamic_temperature(T, SelectorConfig(num_selected=inp["m"])),
+                m=inp["m"], gumbel=inp["gumbel"], cfg=HeteRoScoreConfig(),
+                staleness_override=inp["stale"])[0]
+            got[(world, i)] = spawned[world][0][i][0]
+    for (where, i), sel in got.items():
+        for name, (ref_sel, _, _) in zip(("fused", "sharded"), references[i][1]):
+            assert sel.tolist() == ref_sel.tolist(), f"W={where} {CASE_IDS[i]} vs {name}"
