@@ -20,7 +20,9 @@ Phases, in order; any failure raises and the script exits nonzero:
      and probabilities must agree to 1e-5 relative. K5 for the cases in
      FLASH_CASES (f32 and bf16, causal and not, window 256, GQA 14/2 and
      MHA at D = 64, S = T ∈ {32, 1000, 4096}, D = 256, and kimi-k2's 64/8
-     heads of D = 112): f32 outputs to 1e-5 relative (1e-6 absolute), bf16
+     heads of D = 112; zamba2's 32 MHA heads of 112 at phase 10's shape,
+     the vlm's cross-attention over 1601 keys at S 4096 and 32, hubert's
+     16 MHA heads of 80 at 2 × 4096): f32 outputs to 1e-5 relative (1e-6 absolute), bf16
      outputs within one bf16 ulp of the plain version's plus 1e-6, the
      log-sum-exp to 1e-5. K6 for the cases in GMM_CASES (phase 7's folded
      launches, gate/up and down, per-client, shared and transposed weights;
@@ -70,12 +72,12 @@ Phases, in order; any failure raises and the script exits nonzero:
      backward, one per layer in the eval), and select the plain versions'
      cohort. Then one eval forward through K5 is held against the same
      forward through K5's plain version.
-  6. The same federated LM setup on mamba2-370m with all 48 layers (368 M
-     params), at make_lm_data(seq_len=256) (see SSM_SEQ): each sequence
-     one 256-row SSD chunk. Each round must launch K1 and K2 once
-     and K7 48 × (3 + 1) = 192 times, no K5, and select the plain versions'
-     cohort; one eval forward through K7 is held against the same forward
-     through K7's plain version.
+  6. The same federated LM setup on mamba2-370m at every width and 24 of its
+     48 layers (SSM_LAYERS), at make_lm_data(seq_len=256) (see SSM_SEQ):
+     each sequence one 256-row SSD chunk. Each round must launch K1 and K2
+     once and K7 24 × (3 + 1) = 96 times, no K5, and select the plain
+     versions' cohort; one eval forward through K7 is held against the same
+     forward through K7's plain version.
   7. The same federated LM setup on one device's share of kimi-k2-1t-a32b:
      every published width (d_model 7168, 64 query and 8 KV heads of 112,
      expert d_ff 2048, the router over all 384 experts, top-8), the weights
@@ -86,9 +88,10 @@ Phases, in order; any failure raises and the script exits nonzero:
      per layer per forward and three dX products per backward, each one
      launch for the whole vmapped cohort; none for dW), no K7, and select
      the plain versions' cohort; one eval forward through K6 is held against
-     the same forward through K6's plain version. Phases 5–7 print their peak
-     memory beside the one recorded before the client visit stopped keeping
-     a graph of each backward and every leaf's f32 delta (PEAK_BEFORE).
+     the same forward through K6's plain version. Phases 5 and 7 print their
+     peak memory beside the one recorded before the client visit stopped
+     keeping a graph of each backward and every leaf's f32 delta
+     (PEAK_BEFORE).
   8. The selection control plane at population scale, the reference's Table
      8: K ∈ {10^3, 10^4, 10^5, 10^6}, m = K/1000, a bf16 client state; the
      unfused heterosel, the fused K1 + K2 and the sharded K8 on a one-rank
@@ -102,7 +105,30 @@ Phases, in order; any failure raises and the script exits nonzero:
      (heterosel, heterosel_mult, oort, power_of_choice, random) on phase 3's
      federation, flat, TABLE1_ROUNDS rounds, the same draws for each; each
      selector's peak, final, stability drop, select_ms and execute_ms.
- 10. A JSON line of per-kernel numbers, then the result line.
+ 10. The federated LM path on zamba2-7b, the one model with K5 and K7 in one
+     forward: every published width (d_model 3584, 32 MHA heads of 112, d_ff
+     14336, state 64, 112 SSM heads of 64, vocab 32 000), 12 of 81 layers
+     (two super-blocks, so the shared attention block is applied twice and
+     its gradient is the sum over both; HYBRID_LAYERS), phase 5's setup at
+     seq 256 and a per-client batch of 4 (HYBRID_BATCH). Each round must
+     launch K1 and K2 once, K5 2 × (3 + 1) = 8 times and K7 10 × (3 + 1) =
+     40 times, and select the plain versions' cohort; one eval forward
+     through K5 and K7 is held against the same through their plain versions.
+ 11. One client visit (fed.client.local_train, 2 steps) of hubert-xlarge at
+     every width and all 48 layers on batches of train_4k's shape cut to 2
+     sequences of 4096 frames: K5 non-causal at D 80, 48 launches per
+     forward. Then the loss and every gradient through K5 against the same
+     through its plain version on the card (allowance: 4 bf16 ulp of each
+     leaf's largest entry, or twice the gap K5's plain version in f64 opens).
+ 12. The same visit of llama-3.2-vision-90b at every width, half its
+     vocabulary rows (VLM_VOCAB), one super-block (4 self layers and the
+     gated cross layer, VLM_LAYERS), batch 1 × seq 4096 with 1601 vision
+     tokens: K5 causal in
+     the self layers and non-causal over the vision keys (S ≠ T) in the
+     cross layer, whose two tanh gates are set to 0.5 (VLM_GATE) so that the
+     cross-attention counts. Phases 10–12 print wall time, peak memory and a
+     profile (idle share, top ops) as phases 5–7 do.
+ 13. A JSON line of per-kernel numbers, then the result line.
 
 It needs one card, imports nothing of JAX or of the reference package, and
 exits nonzero without printing a result when torch sees no CUDA device.
@@ -111,6 +137,7 @@ exits nonzero without printing a result when torch sees no CUDA device.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -150,8 +177,20 @@ FLASH_CASES = (("path", 32, 32, 32, 14, 2, 64, True, 0),
                ("MHA T=1000", 2, 1000, 1000, 14, 14, 64, True, 0),
                ("D=256", 1, 300, 300, 4, 2, 256, True, 0),
                ("kimi path", 32, 32, 32, 64, 8, 112, True, 0),
-               ("D=112 T=1000", 1, 1000, 1000, 64, 8, 112, True, 0))
-FLASH_TIMED = ("path", "prefill 4096", "kimi path")
+               ("D=112 T=1000", 1, 1000, 1000, 64, 8, 112, True, 0),
+               ("zamba path", 16, 256, 256, 32, 32, 112, True, 0),
+               ("vlm cross", 1, 4096, 1601, 64, 8, 128, False, 0),
+               ("vlm cross S=32", 1, 32, 1601, 64, 8, 128, False, 0),
+               ("hubert", 2, 4096, 4096, 16, 16, 80, False, 0))
+# "zamba path": phase 10's shape (4 clients × batch 4 of 256 tokens, 32 MHA
+# heads of 112); "vlm cross": phase 12's cross-attention, 4096 queries over
+# 1601 vision keys (25 full 64-key tiles and one of a single key), H 64 /
+# KVH 8 of 128, and the same with S = 32 < T; "hubert": phase 11's shape
+# (batch 2 × 4096 frames, 16 MHA heads of 80, zero-padded to 128 in shared
+# memory), non-causal.
+FLASH_TIMED = ("path", "prefill 4096", "kimi path", "zamba path", "vlm cross", "hubert")
+# Timed in bf16 only (the models run K5 in bf16; f32 stays checked above).
+FLASH_TIMED_BF16 = ("zamba path", "vlm cross", "hubert")
 # Dense peaks of one H100 SXM (NVIDIA data sheet): bf16 inputs on the tensor
 # cores, which accumulate in f32, so K5's f32 state does not force the CUDA
 # cores; f32 inputs have no tensor-core path with TF32 off.
@@ -170,8 +209,11 @@ SSD_CASES = (("path", 32, 256, 256, 32, 64, 128),
              ("smoke", 8, 32, 32, 16, 32, 16),
              ("prefill 4096", 1, 4096, 256, 32, 64, 128),
              ("CL 100", 4, 250, 100, 8, 64, 128),
-             ("HP 128 N 256", 2, 512, 256, 4, 128, 256))
-SSD_TIMED = ("path", "prefill 4096")
+             ("HP 128 N 256", 2, 512, 256, 4, 128, 256),
+             ("zamba path", 16, 256, 256, 112, 64, 64))
+# "zamba path": phase 10's shape, a cohort of 4 clients × batch 4, one
+# 256-row chunk, zamba2-7b's 112 heads of 64 and state 64.
+SSD_TIMED = ("path", "prefill 4096", "zamba path")
 SSD_FORWARD_RTOL = 1e-4
 # Phase 6's sequence length: one full chunk of mamba2-370m's ssm_chunk. The
 # example's 32 tokens would make K7 compute a 256-row chunk that is 7/8
@@ -179,6 +221,11 @@ SSD_FORWARD_RTOL = 1e-4
 # (which records every op's backward), a 48-layer cohort step needed 77 GB
 # at 256 and the phase ran at 128; the visit's vjp keeps no such graph.
 SSM_SEQ = 256
+# Phase 6's depth: half of mamba2-370m's 48 layers. At 48 the phase took
+# ~95 s, ~70 s of it torch.profiler's processing of a cohort call's 43 000
+# kernel launches; the cut keeps the script near its earlier length with
+# phases 10-12 added.
+SSM_LAYERS = 24
 LM_ROUNDS = 3
 LM_STEPS = 3
 # Phase 7's cut of kimi-k2-1t-a32b (registry.expert_share): 8 of the 384
@@ -209,12 +256,38 @@ TABLE8_KS = (1_000, 10_000, 100_000, 1_000_000)
 TABLE8_ROUND = 7
 # Phase 9, the paper's Table I: its five selectors on phase 3's federation.
 TABLE1_ROUNDS = 20
-# Peak memory of phases 5-7 before the client visit dropped the recorded
+# Phase 10's cut of zamba2-7b: every published width, 12 of the 81 layers
+# (two super-blocks of 5 Mamba2 layers and the shared attention block, so the
+# shared block is applied twice and no layer trails; 1 292 666 352 params,
+# 2.59 GB), a per-client batch of 4 (8 did not fit: ~20 bytes per bf16
+# parameter byte for a cohort step, and ~3.5 GB of activations per Mamba2
+# layer at batch 8 × seq 256), seq 256 (one full chunk of its ssm_chunk).
+HYBRID_LAYERS = 12
+HYBRID_BATCH = 4
+# Phases 11 and 12: one client visit (fed.client.local_train) of VISIT_STEPS
+# local steps on batches of train_4k's shape (seq 4096) cut to
+# ENCODER_BATCH / VLM_BATCH sequences, inputs drawn with numpy from a seed.
+# hubert-xlarge runs all 48 layers; llama-3.2-vision-90b one super-block (4
+# self layers and the cross layer, the fewest layer_plan takes) at every
+# width, with both tanh gates of the cross layer at VLM_GATE (at their zero
+# init the cross layer adds exactly nothing) and half its vocabulary rows
+# (VLM_VOCAB, the ids drawn from them): at all 128 256 rows the visit's
+# second step needed 63.2 GB allocated plus 3.5 GB more, with 13.0 GB of the
+# allocator's blocks reserved but free, past the card's 79.2 GB once phases
+# 1-11 had run (71.6 GB allocated at its peak in a run without phases 3-9).
+VISIT_STEPS = 2
+VISIT_LR = 0.05
+ENCODER_BATCH = 2
+ENCODER_MASK = 0.4
+VLM_LAYERS = 5
+VLM_VOCAB = 64128
+VLM_BATCH = 1
+VLM_GATE = 0.5
+# Peak memory of phases 5 and 7 before the client visit dropped the recorded
 # backward and the all-at-once f32 deltas (this script's run on an H100
-# 80GB HBM3 at 700 W, before that change): printed beside this run's.
-# By phase; phase 6 ran at seq 128 then (it needed 77 GB at 256).
-PEAK_BEFORE = {5: (20_444_054_016, 32), 6: (47_652_597_760, 128),
-               7: (48_821_506_048, 32)}
+# 80GB HBM3 at 700 W, before that change): printed beside this run's. (Phase
+# 6 then ran all 48 layers at seq 128: 47 652 597 760 bytes.)
+PEAK_BEFORE = {5: (20_444_054_016, 32), 7: (48_821_506_048, 32)}
 
 
 def nvidia_smi() -> str:
@@ -630,7 +703,9 @@ def phase_flash(dev):
     for case in (c for c in FLASH_CASES if c[0] in FLASH_TIMED):
         name, causal, window = case[0], case[7], case[8]
         small = case[2] <= 64
-        for dtype in (torch.bfloat16, torch.float32):
+        dtypes = (torch.bfloat16,) if name in FLASH_TIMED_BF16 else (torch.bfloat16,
+                                                                     torch.float32)
+        for dtype in dtypes:
             q, k, v = flash_inputs(case, dtype, dev, seed=1)
             key = str(dtype).split(".")[-1]
             kname = "flash_fwd_kernel_wgmma" if dtype == torch.bfloat16 else "flash_fwd_kernel"
@@ -1150,15 +1225,38 @@ def plain_version(kernel: str, plain=None):
         setattr(module, attr, saved)
 
 
-def phase_lm(dev, phase: int, cfg, seq_len: int, per_layer: dict, kernel: str,
-             plain_f64=None):
-    """Phases 5–7: the federated LM path on the full-width ``cfg`` through
-    K1, K2 and the model's own kernels (K5 for qwen2, K7 for mamba2, K5 and
-    K6 for the kimi-k2 share), ``per_layer`` launches of each per layer per
-    round; returns the path's launch counts and the eval logits' largest gap
-    between ``kernel`` and its plain version. With ``plain_f64`` (the plain
-    version with other rounding) the allowed gap is at least twice the gap
-    that opens between it and the plain version."""
+def flash_attention_plain_f64(q, k, v, *, causal: bool, window: int = 0):
+    """K5's plain version computed in f64, o rounded to q's dtype and the
+    log-sum-exp to f32: the same function with other rounding."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    o, lse = tfa.flash_attention_plain(q.double(), k.double(), v.double(), causal=causal,
+                                       window=window)
+    return o.to(q.dtype), lse.float()
+
+
+def flash_attention_plain_reordered(q, k, v, *, causal: bool, window: int = 0):
+    """K5's plain version over 64-key tiles (the bf16 kernel's) instead of
+    BLOCK_K = 32: the same function, its f32 sums taken in another order."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    saved, tfa.BLOCK_K = tfa.BLOCK_K, 64
+    try:
+        return tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    finally:
+        tfa.BLOCK_K = saved
+
+
+def phase_lm(dev, phase: int, cfg, seq_len: int, per_round: dict, kernels: tuple,
+             plain_f64: dict | None = None, local_batch: int = 8):
+    """Phases 5–7 and 10: the federated LM path on the full-width ``cfg``
+    through K1, K2 and the model's own kernels (K5 for qwen2, K7 for mamba2,
+    K5 and K6 for the kimi-k2 share, K5 and K7 for zamba2), ``per_round``
+    launches of each per round; returns the path's launch counts and the eval
+    logits' largest gap between the ``kernels`` and their plain versions.
+    With ``plain_f64`` (each kernel's plain version with other rounding) the
+    allowed gap is at least twice the gap that opens between those and the
+    plain versions."""
     import torch
     from repro_torch.configs import FedConfig
     from repro_torch.core.scoring import HeteRoScoreConfig
@@ -1173,17 +1271,16 @@ def phase_lm(dev, phase: int, cfg, seq_len: int, per_layer: dict, kernel: str,
 
     arch = cfg.name
     fed = FedConfig(num_clients=8, participation=0.5, rounds=LM_ROUNDS, local_epochs=1,
-                    local_batch=8, lr=0.05, mu=0.1, seed=0)
+                    local_batch=local_batch, lr=0.05, mu=0.1, seed=0)
     m = fed.num_selected
     data = make_lm_data(fed, vocab=cfg.vocab_size, seq_len=seq_len)
     model = build_model(cfg)
     n_params = sum(math.prod(p.shape) for p in model.module.parameters())
     want_round = {n: 0 for n in launch_counts()}
-    want_round.update(score_stats=1, score_select=1,
-                      **{k: cfg.num_layers * c for k, c in per_layer.items()})
-    print(f"phase {phase}: {arch}, {n_params} params, seq {seq_len}, predicted launches "
-          f"per round " + ", ".join(f"{k} {cfg.num_layers} x {c} = {cfg.num_layers * c}"
-                                    for k, c in per_layer.items()), flush=True)
+    want_round.update(score_stats=1, score_select=1, **per_round)
+    print(f"phase {phase}: {arch}, {cfg.num_layers} layers, {n_params} params, batch "
+          f"{local_batch} x seq {seq_len}, predicted launches per round "
+          f"{json.dumps(per_round)}", flush=True)
 
     noise_gen = torch.Generator(device=dev).manual_seed(fed.seed)
     drawn = {}
@@ -1249,35 +1346,37 @@ def phase_lm(dev, phase: int, cfg, seq_len: int, per_layer: dict, kernel: str,
             or not np.all(res.selected_history.sum(1) == m):
         raise AssertionError(f"bad selection history {res.selected_history}")
 
-    # One eval forward through the kernel against the same forward through its
-    # plain version, on the trained params; the loss to 1e-3 relative. The
-    # bf16 layers carry a 1-ulp rounding difference of one activation onward.
-    # K5 (24 layers): logits within 4 bf16 ulp of the largest (on the CPU,
-    # reordering K5's plain sums moved qwen2 logits by 1.3 ulp). K7 (48
-    # layers) and K6: within 4 ulp or twice the floor, the gap that the plain
-    # version computed in f64 (a rounding-level change of the same function)
-    # opens against the plain version.
+    # One eval forward through the kernels against the same forward through
+    # their plain versions, on the trained params; the loss to 1e-3 relative.
+    # The bf16 layers carry a 1-ulp rounding difference of one activation
+    # onward. K5 (24 layers): logits within 4 bf16 ulp of the largest (on the
+    # CPU, reordering K5's plain sums moved qwen2 logits by 1.3 ulp). K7 (48
+    # layers), K6 and zamba2's K5 and K7: within 4 ulp or twice the floor,
+    # the gap that the plain versions computed in f64 (a rounding-level
+    # change of the same function) open against the plain versions.
     batch = {k: v.to(dev) for k, v in data.eval_batch().items()}
 
-    def eval_logits(*plain):
-        """Logits and loss through the kernel, or with ``plain_version(kernel,
-        *plain)`` when ``plain`` is given (``None``: the plain version)."""
+    def eval_logits(plain=None):
+        """Logits and loss through the kernels, or with ``plain_version(name,
+        fn)`` for each name and fn of ``plain`` (fn None: the plain version)."""
         with torch.no_grad(), contextlib.ExitStack() as stack:
-            if plain:
-                stack.enter_context(plain_version(kernel, *plain))
+            for name, fn in (plain or {}).items():
+                stack.enter_context(plain_version(name, fn))
             logits = model.forward(res.params, batch)[..., :cfg.vocab_size].float()
             return logits, float(model.loss(res.params, batch))
 
+    t0 = time.perf_counter()
     logits_k, loss_k = eval_logits()
-    logits_p, loss_p = eval_logits(None)
+    logits_p, loss_p = eval_logits(dict.fromkeys(kernels))
     gap = float((logits_k - logits_p).abs().max())
     top = float(bf16_ulp(logits_p.abs().max()))
     allowed, floor = 4 * top, None
     if plain_f64 is not None:
         floor = float((eval_logits(plain_f64)[0] - logits_p).abs().max())
         allowed = max(allowed, 2 * floor)
+    names = " and ".join(kernels)
     if not gap <= allowed or abs(loss_k - loss_p) > 1e-3 * abs(loss_p):
-        raise AssertionError(f"eval logits through {kernel} vs plain: max gap {gap:.3e} "
+        raise AssertionError(f"eval logits through {names} vs plain: max gap {gap:.3e} "
                              f"(bf16 ulp of the top logit {top:.3e}, floor {floor}), "
                              f"loss {loss_k} vs {loss_p}")
     print(f"phase {phase}: K=8 m={m}, {fed.rounds} rounds x {LM_STEPS} steps x batch "
@@ -1286,7 +1385,8 @@ def phase_lm(dev, phase: int, cfg, seq_len: int, per_layer: dict, kernel: str,
         print(f"  round {t}: select_ms {res.select_ms[t]:.3f}  execute_ms "
               f"{res.execute_ms[t]:.3f}  aggregate_ms {res.aggregate_ms[t]:.3f}  "
               f"eval_ms {res.eval_ms[t]:.3f}  exp(-loss) {res.accuracy[t]:.6e}", flush=True)
-    print(f"  eval logits {kernel} vs plain: max abs gap {gap:.4e} ({gap / top:.2f} bf16 "
+    print(f"  eval logits {names} vs plain ({time.perf_counter() - t0:.2f} s): max abs "
+          f"gap {gap:.4e} ({gap / top:.2f} bf16 "
           f"ulp of the top logit), loss {loss_k:.6f} vs {loss_p:.6f}"
           + (f"; floor (plain f64 vs plain f32) {floor:.4e} ({floor / top:.2f} ulp)"
              if floor is not None else ""), flush=True)
@@ -1294,10 +1394,11 @@ def phase_lm(dev, phase: int, cfg, seq_len: int, per_layer: dict, kernel: str,
     print(f"  train_loss {res.train_loss.tolist()}", flush=True)
     print(f"  params {n_params}  max_memory_allocated {peak} bytes"
           + (f"  ({cfg.expert_deployment})" if cfg.family == "moe" else ""), flush=True)
-    before, before_seq = PEAK_BEFORE[phase]
-    print(f"  peak memory {peak} bytes at seq {seq_len}; before the visit kept no "
-          f"backward graph and one f32 delta at a time: {before} bytes at seq "
-          f"{before_seq} ({peak / before:.3f}x)", flush=True)
+    if phase in PEAK_BEFORE:
+        before, before_seq = PEAK_BEFORE[phase]
+        print(f"  peak memory {peak} bytes at seq {seq_len}; before the visit kept no "
+              f"backward graph and one f32 delta at a time: {before} bytes at seq "
+              f"{before_seq} ({peak / before:.3f}x)", flush=True)
     print(f"  launches {json.dumps(launches)}", flush=True)
 
     # Where the time goes, outside the counted run: one more cohort call (the
@@ -1309,11 +1410,161 @@ def phase_lm(dev, phase: int, cfg, seq_len: int, per_layer: dict, kernel: str,
             ("execute", lambda: engine.executor.run_round(
                 engine.params, cohort, np.random.default_rng(fed.seed))),
             ("eval", lambda: default_eval(model, engine.params, batch))):
+        t0 = time.perf_counter()
         prof = profile_phase(fn)
         if what == "execute":
             prof["kernel_launches_per_local_step"] = prof["kernel_launches"] / LM_STEPS
-        print(f"  profile {what}: " + json.dumps(prof), flush=True)
+        print(f"  profile {what} ({time.perf_counter() - t0:.2f} s): " + json.dumps(prof),
+              flush=True)
     return launches, gap
+
+
+def visit_batches(cfg, batch: int, steps: int, dev, seed: int = 0) -> dict:
+    """``steps`` batches of train_4k's shape cut to ``batch`` sequences, with
+    ``data.input_specs``' names and dtypes, drawn with numpy from ``seed``:
+    frames and vision embeddings N(0, 1), the encoder's mask over
+    ENCODER_MASK of the positions, labels (and tokens) uniform over the
+    vocabulary; an LM's labels are its tokens (the loss shifts them)."""
+    import torch
+    from repro_torch.configs import get_shape
+    from repro_torch.data import input_specs
+
+    rng = np.random.default_rng(seed)
+    specs = input_specs(cfg, dataclasses.replace(get_shape("train_4k"), global_batch=batch))
+    out = {}
+    for name, spec in specs.items():
+        dims = (steps, *spec.shape)
+        if spec.dtype == torch.bool:
+            a = torch.from_numpy(rng.uniform(size=dims) < ENCODER_MASK)
+        elif spec.dtype == torch.int32:
+            a = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=dims, dtype=np.int32))
+        else:
+            a = torch.from_numpy(rng.standard_normal(size=dims, dtype=np.float32)).to(spec.dtype)
+        out[name] = a.to(dev)
+    if "tokens" in out:
+        out["labels"] = out["tokens"]
+    return out
+
+
+def phase_visit(dev, phase: int, cfg, batch: int, gates: float | None = None):
+    """Phases 11 and 12: one client visit (``fed.client.local_train``,
+    VISIT_STEPS steps of FedProx SGD) of the full-width ``cfg`` on batches of
+    train_4k's shape cut to ``batch``, through K5 (one launch per attention
+    layer per forward; the backward is plain PyTorch). ``gates`` sets both
+    tanh gates of every vlm cross layer. Then the loss and every leaf's
+    gradient on the first batch through K5 against the same through its
+    plain version on the card: the loss to 1e-3 relative, each leaf within 4
+    bf16 ulp of its largest entry or twice the floor, as phase_lm holds eval
+    logits. The floor is the larger gap that a rounding-level change of K5's
+    plain version opens against it: computed in f64, or summed over 64-key
+    tiles (the bf16 kernel's) in f32. Rounded to bf16, the f64 version's
+    output nearly always equals the f32 one's, so a leaf that sums many
+    bf16 products (a vlm gate's gradient) moves with the summation order,
+    as it does through the kernel, and not with f64. The floor is computed
+    only where a gap passes 4 ulp. Returns the launch counts and the largest
+    gap as a share of its allowance."""
+    import torch
+    from repro_torch.fed.client import fedprox_grad, local_train
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    n_params = sum(math.prod(p.shape) for p in model.module.parameters())
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    if gates is not None:
+        for name in ("cross_layers.gate_attn", "cross_layers.gate_mlp"):
+            params[name].fill_(gates)
+    batches = visit_batches(cfg, batch, VISIT_STEPS, dev)
+    torch.cuda.synchronize()
+    set_up = time.perf_counter() - t0
+    seq = batches["labels"].shape[-1]
+    want = {n: 0 for n in launch_counts()}
+    want["flash_attention"] = cfg.num_layers * VISIT_STEPS
+    print(f"phase {phase}: {cfg.name}, {cfg.num_layers} layers, {n_params} params, one "
+          f"client visit of {VISIT_STEPS} steps x batch {batch} x seq {seq}"
+          + (f", cross-attention over {cfg.vision_tokens} vision tokens, gates {gates}"
+             if gates is not None else "")
+          + f"; predicted K5 launches {cfg.num_layers} x {VISIT_STEPS} = "
+          f"{want['flash_attention']}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = local_train(model.loss, params, batches, lr=VISIT_LR, mu=0.1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches != want:
+        raise AssertionError(f"{cfg.name} visit launches {launches}, want {want}")
+    mean_loss, sq = float(res.mean_loss), float(res.update_sqnorm)
+    if not (math.isfinite(mean_loss) and math.isfinite(sq) and sq > 0):
+        raise AssertionError(f"visit loss {mean_loss}, update sqnorm {sq}")
+    for name, p in res.params.items():
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"non-finite parameter {name}")
+    del res
+    print(f"  set-up {set_up:.2f} s; visit wall {wall:.2f} s, mean loss {mean_loss:.6f}, "
+          f"||dw||^2 {sq:.6e}, "
+          f"max_memory_allocated {peak} bytes; launches {json.dumps(launches)}", flush=True)
+
+    first = {k: v[0] for k, v in batches.items()}
+
+    def loss_and_grads(*plain):
+        """Through K5, or with ``plain_version("flash_attention", *plain)``
+        when ``plain`` is given (``None``: the plain version)."""
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(plain_version("flash_attention", *plain))
+            loss, grads = fedprox_grad(model.loss, params, params, first, 0.0)
+            return float(loss), grads
+
+    t0 = time.perf_counter()
+    loss_p, grads_p = loss_and_grads(None)
+    loss_k, grads = loss_and_grads()
+    gaps = {n: float((g.float() - grads_p[n].float()).abs().max()) for n, g in grads.items()}
+    del grads
+    ulps = {n: 4 * float(bf16_ulp(g.float().abs().max())) for n, g in grads_p.items()}
+    # The floor can only widen an allowance: its two passes (the f64 one the
+    # slowest) run only where a leaf's gap passes 4 bf16 ulp.
+    floors, floor_losses = {}, []
+    if any(gaps[n] > ulps[n] for n in gaps):
+        for plain in (flash_attention_plain_f64, flash_attention_plain_reordered):
+            loss_f, grads = loss_and_grads(plain)
+            floor_losses.append(loss_f)
+            for n, g in grads.items():
+                floors[n] = max(floors.get(n, 0.0),
+                                float((g.float() - grads_p[n].float()).abs().max()))
+            del grads
+    del grads_p
+    worst, worst_name = 0.0, None
+    for name, gap in gaps.items():
+        allowed = max(ulps[name], 2 * floors.get(name, 0.0))
+        if allowed == 0.0:
+            if gap != 0.0:
+                raise AssertionError(f"{name}: gradient gap {gap} where the plain "
+                                     "versions agree exactly")
+            continue
+        if gap / allowed > worst:
+            worst, worst_name = gap / allowed, name
+    if worst > 1.0 or abs(loss_k - loss_p) > 1e-3 * abs(loss_p):
+        raise AssertionError(f"{cfg.name} gradients through K5 vs plain: worst leaf "
+                             f"{worst_name} at {worst:.3f} of its allowance; loss {loss_k} "
+                             f"vs {loss_p}")
+    print(f"  loss and gradients through K5 vs plain ({time.perf_counter() - t0:.2f} s): "
+          f"loss {loss_k:.6f} vs {loss_p:.6f}; worst leaf {worst_name} at {worst:.3f} of "
+          f"its allowance (gap {gaps.get(worst_name)}, 4 bf16 ulp of its largest "
+          f"{ulps.get(worst_name)}, floor "
+          + (f"{floors.get(worst_name)}; losses of the f64 and 64-key-tile plain versions "
+             f"{floor_losses})" if floors else "not needed)"), flush=True)
+
+    # Where the time goes: one more local step's gradient under torch.profiler.
+    t0 = time.perf_counter()
+    prof = profile_phase(lambda: fedprox_grad(model.loss, params, params, first, 0.1))
+    print(f"  profile step ({time.perf_counter() - t0:.2f} s): " + json.dumps(prof),
+          flush=True)
+    print(f"  peak memory {peak} bytes (the visit)", flush=True)
+    return launches, worst
 
 
 def release(dev) -> None:
@@ -1713,6 +1964,7 @@ def main() -> int:
     from repro_torch.configs import expert_share, get_config
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
+    from repro_torch.models import hybrid
 
     dev = resolve_device("cuda")
     smi = nvidia_smi()
@@ -1721,7 +1973,12 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} "
           f"capability {torch.cuda.get_device_capability(0)}", flush=True)
 
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
+
+    def lap(phase: int) -> None:
+        print(f"chip_smoke: phase {phase} done at {time.perf_counter() - start:.1f} s",
+              flush=True)
+
     sources = ("score_select", "flash_attention", "moe_gmm", "ssd_scan")
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc each, together
         builds = list(pool.map(_build.build, sources))
@@ -1743,33 +2000,70 @@ def main() -> int:
     if len(k7_sass) < 2 or not all(k7_sass.values()):
         raise RuntimeError(f"K7 kernels without TF32 mma instructions in their SASS: {k7_sass}")
 
+    lap(1)
     err, timings = phase_kernels(dev)
     k8_err = phase_k8_offsets(dev)
     flash_err, flash_timings = phase_flash(dev)
     gmm_err, gmm_timings = phase_gmm(dev)
     ssd_err, ssd_fwd_err, ssd_timings = phase_ssd(dev)
-    paths = {"flat": phase_main_path(dev), "hierarchical": phase_hierarchy(dev, err)}
+    lap(2)
+    paths = {"flat": phase_main_path(dev)}
+    lap(3)
+    paths["hierarchical"] = phase_hierarchy(dev, err)
+    lap(4)
     # Per layer per round: one launch per local step and one in the eval
     # (the vmap rules fold the cohort into one launch; K5's and K7's
     # backwards are plain PyTorch). K6: three grouped products per forward
     # and three dX products per backward (dW is plain PyTorch).
     per_layer = {"flash_attention": LM_STEPS + 1, "ssd_chunk": LM_STEPS + 1,
                  "grouped_matmul": LM_STEPS * (3 + 3) + 3}
-    paths["lm"], lm_gap = phase_lm(dev, 5, get_config("qwen2-0.5b"), 32,
-                                   {"flash_attention": per_layer["flash_attention"]},
-                                   "flash_attention")
+
+    def per_round(cfg, *names):
+        return {n: cfg.num_layers * per_layer[n] for n in names}
+
+    cfg = get_config("qwen2-0.5b")
+    paths["lm"], lm_gap = phase_lm(dev, 5, cfg, 32, per_round(cfg, "flash_attention"),
+                                   ("flash_attention",))
     release(dev)
-    paths["ssm"], ssm_gap = phase_lm(dev, 6, get_config("mamba2-370m"), SSM_SEQ,
-                                     {"ssd_chunk": per_layer["ssd_chunk"]}, "ssd_chunk",
-                                     plain_f64=ssd_chunk_plain_f64)
+    lap(5)
+    cfg = dataclasses.replace(get_config("mamba2-370m"), num_layers=SSM_LAYERS)
+    paths["ssm"], ssm_gap = phase_lm(dev, 6, cfg, SSM_SEQ, per_round(cfg, "ssd_chunk"),
+                                     ("ssd_chunk",),
+                                     plain_f64={"ssd_chunk": ssd_chunk_plain_f64})
     release(dev)
+    lap(6)
+    cfg = expert_share(get_config("kimi-k2-1t-a32b"), **MOE_SHARE)
     paths["moe"], moe_gap = phase_lm(
-        dev, 7, expert_share(get_config("kimi-k2-1t-a32b"), **MOE_SHARE), 32,
-        {k: per_layer[k] for k in ("flash_attention", "grouped_matmul")}, "grouped_matmul",
-        plain_f64=gmm_plain_f64)
+        dev, 7, cfg, 32, per_round(cfg, "flash_attention", "grouped_matmul"),
+        ("grouped_matmul",), plain_f64={"grouped_matmul": gmm_plain_f64})
     release(dev)
+    lap(7)
     paths["table8"], table8 = phase_table8(dev)
+    lap(8)
     paths["table1"], _ = phase_table1(dev)
+    release(dev)
+    lap(9)
+    # Phase 10: the shared block through K5 once per super-block, the Mamba2
+    # layers through K7, each once per local step and once in the eval.
+    cfg = dataclasses.replace(get_config("zamba2-7b"), num_layers=HYBRID_LAYERS)
+    n_super, per, tail = hybrid.layer_plan(cfg)
+    paths["hybrid"], hybrid_gap = phase_lm(
+        dev, 10, cfg, SSM_SEQ, {"flash_attention": n_super * per_layer["flash_attention"],
+                                "ssd_chunk": (n_super * per + tail) * per_layer["ssd_chunk"]},
+        ("flash_attention", "ssd_chunk"), local_batch=HYBRID_BATCH,
+        plain_f64={"flash_attention": flash_attention_plain_f64,
+                   "ssd_chunk": ssd_chunk_plain_f64})
+    release(dev)
+    lap(10)
+    paths["encoder"], encoder_gap = phase_visit(dev, 11, get_config("hubert-xlarge"),
+                                                ENCODER_BATCH)
+    release(dev)
+    lap(11)
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-90b"), num_layers=VLM_LAYERS,
+                              vocab_size=VLM_VOCAB)
+    paths["vlm"], vlm_gap = phase_visit(dev, 12, cfg, VLM_BATCH, gates=VLM_GATE)
+    release(dev)
+    lap(12)
 
     def launches(name):
         by_path = {p: counts[name] for p, counts in paths.items()}
@@ -1811,6 +2105,9 @@ def main() -> int:
         "max_abs_err": max(flash_err.values()),
         "max_abs_err_by_dtype": flash_err,
         "lm_eval_logit_gap": lm_gap,
+        "hybrid_eval_logit_gap": hybrid_gap,
+        "encoder_grad_gap_share": encoder_gap,
+        "vlm_grad_gap_share": vlm_gap,
         "ms": main_row["k5_ms"], "plain_ms": main_row["k5_plain_ms"],
         "bound_ms": main_row["k5_bound_ms"], "bound_by": main_row["k5_bound_by"],
         "library_ms": main_row["k5_library_ms"],   # scaled_dot_product_attention
@@ -1838,6 +2135,7 @@ def main() -> int:
         "max_abs_err": ssd_err,
         "ssd_forward_max_abs_err": ssd_fwd_err,
         "ssm_eval_logit_gap": ssm_gap,
+        "hybrid_eval_logit_gap": hybrid_gap,
         "sass_tf32_mma": k7_sass,
         "ms": main_row["k7_ms"], "device_ms": main_row["k7_device_ms"],
         "plain_ms": main_row["k7_plain_ms"],

@@ -1,9 +1,11 @@
-"""Config dataclasses: model architecture and federated setup.
+"""Config dataclasses: model architecture, input shapes and federated setup.
 
 Plain frozen dataclasses, as in ``repro.configs.base``. Only the fields the
-ported families (resnet, dense, ssm, moe) and the sync engines (flat and
-hierarchical) read are carried over. ``ExpertShareConfig`` is the port's
-own: one device's share of an MoE config's experts.
+ported families (resnet, dense, ssm, moe, hybrid, encoder, vlm) and the
+sync engines (flat and hierarchical) read are carried over; the
+reference's ``remat`` is not (the port keeps every activation).
+``ExpertShareConfig`` is the port's own: one device's share of an MoE
+config's experts.
 """
 
 from __future__ import annotations
@@ -40,6 +42,13 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_headdim: int = 64
     ssm_chunk: int = 256
+    # hybrid (zamba2): one shared attention block applied every N layers
+    shared_attn_every: int = 0
+    # vlm: cross-attention layer period & vision stub
+    cross_attn_every: int = 0
+    vision_tokens: int = 1601         # (1 tile × 40×40 patches + cls) stub
+    # encoder-only (hubert): masked-prediction frontend stub
+    is_encoder: bool = False
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     # vision classification (resnet)
@@ -75,6 +84,16 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_headdim
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the reference (``configs.shapes``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
 
 
 @dataclasses.dataclass(frozen=True)

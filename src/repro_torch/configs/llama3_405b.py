@@ -1,0 +1,10 @@
+"""Llama-3-405B — dense GQA, 128k vocab [arXiv:2407.21783]."""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3-405b", family="dense", num_layers=126, d_model=16384,
+    num_heads=128, num_kv_heads=8, d_ff=53248, vocab_size=128256,
+    rope_theta=5e5,
+    citation="arXiv:2407.21783 (The Llama 3 Herd of Models)",
+)

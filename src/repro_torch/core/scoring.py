@@ -14,6 +14,9 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core.state import ClientState, staleness as _staleness, to_f32
+from repro_torch.kernels._math import exp as _exp
+from repro_torch.kernels._math import log as _log
+from repro_torch.kernels._math import log1p as _log1p
 
 EPS = 1e-8
 
@@ -62,7 +65,7 @@ def momentum(state: ClientState) -> torch.Tensor:
     """Eq (5): sigmoid-bounded relative loss improvement, range [-0.5, 1.5]."""
     m = (state.loss_prev2 - state.loss_prev) / (state.loss_prev2 + EPS)
     m = torch.where(state.has_momentum > 0, m, 0.0)
-    return 2.0 / (1.0 + torch.exp(-5.0 * m)) - 0.5
+    return 2.0 / (1.0 + _exp(-5.0 * m)) - 0.5
 
 
 def fairness(state: ClientState, cfg: HeteRoScoreConfig) -> torch.Tensor:
@@ -84,7 +87,7 @@ def staleness_factor(state: ClientState, round_idx, cfg: HeteRoScoreConfig,
     else:
         delta = torch.clamp_min(override.to(torch.float32), 0.0)
     delta = torch.clamp_max(delta, float(cfg.t_max))
-    return 1.0 + cfg.gamma * torch.log1p(delta)
+    return 1.0 + cfg.gamma * _log1p(delta)
 
 
 def norm_penalty(state: ClientState, cfg: HeteRoScoreConfig) -> torch.Tensor:
@@ -94,7 +97,7 @@ def norm_penalty(state: ClientState, cfg: HeteRoScoreConfig) -> torch.Tensor:
     denom = torch.sum(torch.where(have, sq, 0.0)) / torch.clamp_min(
         torch.sum(have.to(torch.float32)), 1.0)
     r = torch.where(have, sq / (denom + EPS), 1.0)
-    sig = 2.0 / (1.0 + torch.exp(-3.0 * r)) - 1.0
+    sig = 2.0 / (1.0 + _exp(-3.0 * r)) - 1.0
     return 1.0 - cfg.alpha * sig
 
 
@@ -153,7 +156,7 @@ def score_bounds(cfg: HeteRoScoreConfig) -> tuple[float, float]:
     """(S_min, S_max) of the non-staleness part of the additive score, from
     the component ranges (JS ≤ log 2); Thm III.3's exploration bound
     (``core.theory``) uses them. Reference ``core/scoring.py:211``."""
-    js_max = float(torch.log(torch.tensor(2.0)))
+    js_max = float(_log(torch.tensor(2.0)))
     s_min = (cfg.w_value * 0.0 + cfg.w_diversity * 0.0 + cfg.w_momentum * (-0.5)
              + cfg.w_fairness * (-1.0) + cfg.w_norm * (-cfg.alpha))
     s_max = (cfg.w_value * 1.0 + cfg.w_diversity * 2.0 * js_max + cfg.w_momentum * 1.5

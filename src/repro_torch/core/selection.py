@@ -24,6 +24,8 @@ import torch
 
 from repro_torch.core.scoring import HeteRoScoreConfig, compute_scores
 from repro_torch.core.state import ClientState, staleness
+from repro_torch.kernels._math import log as _log
+from repro_torch.kernels.score_select import order_keys
 
 Draws = Union[torch.Tensor, Mapping[str, torch.Tensor]]
 SelectFn = Callable[[Draws, ClientState, int], Tuple[torch.Tensor, torch.Tensor]]
@@ -94,9 +96,13 @@ def named_draw(draws: Draws, name: str) -> torch.Tensor:
 
 
 def _topk_first(x: torch.Tensor, m: int) -> torch.Tensor:
-    """Indices of the m largest entries, ties to the smaller index, as
-    ``jax.lax.top_k`` picks them (``torch.topk`` does not order ties)."""
-    return torch.sort(x, descending=True, stable=True).indices[:m]
+    """Indices of the m largest entries of the f32 ``x``, largest first, as
+    ``jax.lax.top_k`` picks them: by value in IEEE total order (−0.0 below
+    +0.0, NaN above +inf; ``score_select.order_keys``), ties to the smaller
+    index. ``torch.topk`` does not order ties, and a stable sort of the
+    floats ranks −0.0 equal to +0.0."""
+    return torch.sort(order_keys(x.to(torch.float32)), descending=True,
+                      stable=True).indices[:m]
 
 
 def dynamic_temperature(round_idx, cfg: SelectorConfig) -> torch.Tensor:
@@ -112,8 +118,8 @@ def selection_probabilities(scores: torch.Tensor, tau: torch.Tensor) -> torch.Te
 
 def sample_clients(gumbel: torch.Tensor, probs: torch.Tensor, m: int) -> torch.Tensor:
     """m distinct clients ∝ probs via Gumbel-top-m; returns a (K,) bool mask."""
-    perturbed = torch.log(probs + 1e-30) + gumbel.to(probs.device)
-    idx = torch.topk(perturbed, m).indices
+    perturbed = _log(probs + 1e-30) + gumbel.to(probs.device)
+    idx = _topk_first(perturbed, m)
     mask = torch.zeros(probs.shape, dtype=torch.bool, device=probs.device)
     mask[idx] = True
     return mask

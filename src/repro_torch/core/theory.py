@@ -16,6 +16,8 @@ import torch
 
 from repro_torch.core.scoring import HeteRoScoreConfig, score_bounds
 from repro_torch.core.selection import SelectorConfig, dynamic_temperature
+from repro_torch.kernels._math import exp as _exp
+from repro_torch.kernels._math import log1p as _log1p
 
 
 def exploration_lower_bound(staleness: torch.Tensor, round_idx, sel_cfg: SelectorConfig,
@@ -29,9 +31,9 @@ def exploration_lower_bound(staleness: torch.Tensor, round_idx, sel_cfg: Selecto
     tau = dynamic_temperature(round_idx, sel_cfg)
     delta = torch.clamp_max(torch.as_tensor(staleness), score_cfg.t_max).to(torch.float32)
     tau = tau.to(delta.device)
-    mine = torch.exp((s_min + score_cfg.gamma * torch.log1p(delta)) / tau)
+    mine = _exp((s_min + score_cfg.gamma * _log1p(delta)) / tau)
     t_max = torch.tensor(float(score_cfg.t_max), dtype=torch.float32, device=delta.device)
-    other = torch.exp((s_max + score_cfg.gamma * torch.log1p(t_max)) / tau)
+    other = _exp((s_max + score_cfg.gamma * _log1p(t_max)) / tau)
     return mine / (mine + (sel_cfg.num_selected - 1) * other)
 
 

@@ -1,5 +1,7 @@
 """Synthetic federated data, as in ``repro.data.synthetic``: vision (a
-CIFAR-10 stand-in) and language modelling (per-client bigram "dialects").
+CIFAR-10 stand-in) and language modelling (per-client bigram "dialects"),
+and the model inputs of each (architecture, input shape) as empty tensors
+on the meta device (``input_specs``).
 
 Everything is generated in numpy from the seed, so images, labels, client
 index lists and token streams are bitwise equal to the reference's. Batches
@@ -15,7 +17,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from repro_torch.configs.base import FedConfig
+from repro_torch.configs.base import FedConfig, ModelConfig, ShapeConfig
 from repro_torch.core.state import ClientState, init_client_state
 from repro_torch.fed.partition import (client_label_js, dirichlet_partition,
                                        js_divergence)
@@ -188,3 +190,40 @@ def synthetic_client_state(k: int, seed: int = 0, *,
         has_momentum=obs_t.to(torch.float32),
     )
     return state.map(lambda x: x.to(device))
+
+
+# ---------------------------------------------------------------------------
+# Model inputs of an (architecture, input shape), without storage
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """The model inputs for (arch × input shape) as empty tensors on the meta
+    device (each a shape and a dtype, as the reference's
+    ``jax.ShapeDtypeStruct``).
+
+    train/prefill: the full (global_batch, seq_len) batch. decode: one new
+    token per sequence. The encoder takes frame embeddings, a mask of the
+    masked positions and cluster labels; the vlm adds projected vision
+    embeddings (batch, vision_tokens, d_model).
+    """
+    b, s = shape.global_batch, shape.seq_len
+    f32, i32, bf16 = torch.float32, torch.int32, torch.bfloat16
+
+    def spec(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if cfg.family == "resnet":
+        return {"images": spec((b, cfg.image_size, cfg.image_size, 3), f32),
+                "labels": spec((b,), i32)}
+    if cfg.family == "encoder":
+        return {"frames": spec((b, s, cfg.d_model), bf16),
+                "mask": spec((b, s), torch.bool),
+                "labels": spec((b, s), i32)}
+    if shape.kind == "decode":
+        out = {"tokens": spec((b, 1), i32)}
+    else:
+        out = {"tokens": spec((b, s), i32), "labels": spec((b, s), i32)}
+    if cfg.family == "vlm":
+        out["vision_embeds"] = spec((b, cfg.vision_tokens, cfg.d_model), bf16)
+    return out

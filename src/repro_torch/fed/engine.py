@@ -48,6 +48,7 @@ from repro_torch.device import resolve_device, synchronize
 from repro_torch.fed import batched as fed_batched
 from repro_torch.fed import client as fed_client
 from repro_torch.fed import server as fed_server
+from repro_torch.kernels._math import exp as _exp
 
 # (round_idx, K) -> (K,) Gumbel row, or {name: (K,) row} (core.selection)
 NoiseFn = Callable[[int, int], Draws]
@@ -129,7 +130,7 @@ def default_eval(model: Any, params: Any, batch: Dict[str, torch.Tensor]) -> flo
             logits = model.forward(params, batch)
             return float(torch.mean((torch.argmax(logits, -1) == batch["labels"]
                                      ).to(torch.float32)))
-        return float(torch.exp(-model.loss(params, batch)))
+        return float(_exp(-model.loss(params, batch)))
 
 
 def default_metric_name(model: Any) -> str:

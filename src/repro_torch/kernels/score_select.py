@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from repro_torch.core.scoring import HeteRoScoreConfig, diversity_decay
 from repro_torch.kernels import _build
 from repro_torch.kernels._math import exp as _exp
+from repro_torch.kernels._math import log1p as _log1p
 
 MAX_BLOCK = 2048    # clients per CTA: z of the whole block fits 8 KB of smem
 MIN_BLOCK = 32      # one warp
@@ -248,10 +249,10 @@ def _block_scores_plain(x: torch.Tensor, glob: torch.Tensor, *, t: float,
     statistics or (4, E, 1) for per-edge statistics over an (E, seg) view.
     The op order matches ``client_score`` in csrc/score_select.cu. Every
     divisor is a tensor on ``x``'s device: a CPU scalar divisor would let
-    PyTorch's CUDA division multiply by a reciprocal instead. exp is
-    ``kernels/_math.exp`` here and in every plain version below: on the
-    CPU it does not go through MKL's vector math (ROADMAP queue 3 (f)), on
-    the card it is ``torch.exp``.
+    PyTorch's CUDA division multiply by a reciprocal instead. exp and log1p
+    are ``kernels/_math``'s here and in every plain version below: on the
+    CPU they do not go through MKL's vector math (ROADMAP queue 3 (f)), on
+    the card they are ``torch.exp`` and ``torch.log1p``.
     """
     lmin, lmax, avgsq, hmax = glob[0], glob[1], glob[2], glob[3]
     loss = x[ROW_LOSS]
@@ -275,7 +276,7 @@ def _block_scores_plain(x: torch.Tensor, glob: torch.Tensor, *, t: float,
     else:
         delta = torch.clamp_min(t - x[ROW_LAST], 0.0)
     delta = torch.clamp_max(delta, float(cfg.t_max))
-    st = 1.0 + cfg.gamma * torch.log1p(delta)
+    st = 1.0 + cfg.gamma * _log1p(delta)
     # Eq (11)
     r = torch.where(has_loss, x[ROW_SQ] / (avgsq + 1e-8), 1.0)
     npen = 1.0 - cfg.alpha * (2.0 / (1.0 + _exp(-3.0 * r)) - 1.0)

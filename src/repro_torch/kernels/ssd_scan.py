@@ -230,7 +230,7 @@ def ssd_recurrence(x, dt, a_neg, b_in, c_in, h0=None):
                     device=x.device) if h0 is None else h0
     ys = []
     for t in range(s):
-        dec = torch.exp(dt[:, t] * a_neg)
+        dec = _exp(dt[:, t] * a_neg)
         h = dec[:, :, None, None] * h + torch.einsum("bh,bhp,bn->bhpn", dt[:, t], x[:, t],
                                                      b_in[:, t])
         ys.append(torch.einsum("bn,bhpn->bhp", c_in[:, t], h))

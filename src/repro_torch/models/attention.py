@@ -1,17 +1,21 @@
-"""Attention: GQA with optional QKV bias and sliding window (prefill/train).
+"""Attention: GQA with optional QKV bias, sliding window and cross-attention
+(prefill/train).
 
-Counterpart of ``repro.models.attention`` for the dense family's training
-and eval forward. ``blockwise_attention`` is the reference's online-softmax
+Counterpart of ``repro.models.attention`` for the training and eval
+forwards. ``blockwise_attention`` is the reference's online-softmax
 attention with f32 state; here it is the flash-attention kernel K5
 (``kernels.flash_attention``): a CUDA tensor launches the sm_90a kernel, a
 CPU tensor takes its plain version, and nothing on the card takes the plain
-version. Decode attention, the KV cache and cross-attention wait for the
-serving slice.
+version. Cross-attention (``kv_x``: the vlm's vision tokens) runs through
+the same kernel, non-causal over T ≠ S keys; KV heads are never repeated
+(the kernel reads KV head h // G through its strides), so the reference's
+``_expand_kv`` has no counterpart. Decode attention and the KV cache wait
+for the serving slice.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,16 +42,24 @@ def init_attention(generator: torch.Generator, d_model: int, num_heads: int,
 
 
 def qkv_project(params: Params, x: torch.Tensor, positions: torch.Tensor,
-                rope_theta: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Project to q (B,S,H,D), k/v (B,T,KVH,D); apply RoPE to q and k."""
+                rope_theta: float, kv_x: Optional[torch.Tensor] = None,
+                kv_positions: Optional[torch.Tensor] = None, use_rope: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Project to q (B,S,H,D) from ``x`` and k/v (B,T,KVH,D) from ``kv_x``
+    (``x`` when None); with ``use_rope``, RoPE on q at ``positions`` and on
+    k at ``kv_positions`` (``positions`` when None)."""
+    src = x if kv_x is None else kv_x
     q = einsum("bsd,dhk->bshk", x, params["wq"])
-    k = einsum("btd,dhk->bthk", x, params["wk"])
-    v = einsum("btd,dhk->bthk", x, params["wv"])
+    k = einsum("btd,dhk->bthk", src, params["wk"])
+    v = einsum("btd,dhk->bthk", src, params["wv"])
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    return apply_rope(q, positions, rope_theta), apply_rope(k, positions, rope_theta), v
+    if use_rope:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions if kv_positions is None else kv_positions, rope_theta)
+    return q, k, v
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -63,8 +75,13 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention_block(params: Params, x: torch.Tensor, positions: torch.Tensor, *,
-                    rope_theta: float, causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Self-attention sub-layer: projections, blockwise attention, out proj."""
-    q, k, v = qkv_project(params, x, positions, rope_theta)
-    o = blockwise_attention(q, k, v, causal=causal, window=window)
+                    rope_theta: float, causal: bool = True, window: int = 0,
+                    kv_x: Optional[torch.Tensor] = None,
+                    kv_positions: Optional[torch.Tensor] = None,
+                    use_rope: bool = True) -> torch.Tensor:
+    """Attention sub-layer: projections, blockwise attention, out proj. With
+    ``kv_x`` it is cross-attention over ``kv_x``'s tokens, never causal."""
+    q, k, v = qkv_project(params, x, positions, rope_theta, kv_x=kv_x,
+                          kv_positions=kv_positions, use_rope=use_rope)
+    o = blockwise_attention(q, k, v, causal=causal and kv_x is None, window=window)
     return einsum("bshk,hkd->bsd", o, params["wo"])

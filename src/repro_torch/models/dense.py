@@ -27,27 +27,44 @@ from repro_torch.models.layers import (DEFAULT_DTYPE, Params, cross_entropy,
                                        split_layers, unembed)
 
 
-def meta_decoder(module: nn.Module, cfg: ModelConfig) -> None:
-    """The weights a pre-norm attention decoder has whatever its FFN: the
-    embeddings, the stacked attention and norms, the final norm (on the meta
-    device, under ``module``)."""
-    L, d, hd = cfg.num_layers, cfg.d_model, cfg.resolved_head_dim
-    h, kvh = cfg.num_heads, cfg.num_kv_heads
+def meta_embed(module: nn.Module, cfg: ModelConfig) -> None:
+    """The token embedding and, unless tied, the unembedding (meta device)."""
     module.embed = nn.Module()
-    module.embed.tok_embed = meta_param(cfg.padded_vocab, d)
+    module.embed.tok_embed = meta_param(cfg.padded_vocab, cfg.d_model)
     if not cfg.tie_embeddings:
-        module.embed.unembed = meta_param(d, cfg.padded_vocab)
-    module.layers = nn.Module()
-    module.layers.attn = nn.Module()
+        module.embed.unembed = meta_param(cfg.d_model, cfg.padded_vocab)
+
+
+def meta_block(module: nn.Module, cfg: ModelConfig, *stack: int, qkv_bias: bool = False,
+               mlp: bool = True) -> None:
+    """A pre-norm attention block's weights under ``module`` (meta device),
+    each with the leading ``stack`` dims: attention (with QKV biases if
+    ``qkv_bias``), the gated MLP if ``mlp``, and the two norms."""
+    d, hd, h, kvh = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    module.attn = nn.Module()
     for name, shape in (("wq", (d, h, hd)), ("wk", (d, kvh, hd)),
                         ("wv", (d, kvh, hd)), ("wo", (h, hd, d))):
-        setattr(module.layers.attn, name, meta_param(L, *shape))
-    if cfg.qkv_bias:
+        setattr(module.attn, name, meta_param(*stack, *shape))
+    if qkv_bias:
         for name, heads in (("bq", h), ("bk", kvh), ("bv", kvh)):
-            setattr(module.layers.attn, name, meta_param(L, heads, hd))
-    module.layers.ln1 = meta_param(L, d, dtype=torch.float32)
-    module.layers.ln2 = meta_param(L, d, dtype=torch.float32)
-    module.final_norm = meta_param(d, dtype=torch.float32)
+            setattr(module.attn, name, meta_param(*stack, heads, hd))
+    if mlp:
+        module.mlp = nn.Module()
+        for name, shape in (("w_gate", (d, cfg.d_ff)), ("w_up", (d, cfg.d_ff)),
+                            ("w_down", (cfg.d_ff, d))):
+            setattr(module.mlp, name, meta_param(*stack, *shape))
+    module.ln1 = meta_param(*stack, d, dtype=torch.float32)
+    module.ln2 = meta_param(*stack, d, dtype=torch.float32)
+
+
+def meta_decoder(module: nn.Module, cfg: ModelConfig, mlp: bool = False) -> None:
+    """The weights of a pre-norm attention decoder (on the meta device,
+    under ``module``): the embeddings, the stacked attention and norms (and
+    the gated MLP if ``mlp``), the final norm."""
+    meta_embed(module, cfg)
+    module.layers = nn.Module()
+    meta_block(module.layers, cfg, cfg.num_layers, qkv_bias=cfg.qkv_bias, mlp=mlp)
+    module.final_norm = meta_param(cfg.d_model, dtype=torch.float32)
 
 
 class DenseLM(nn.Module):
@@ -55,24 +72,26 @@ class DenseLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        meta_decoder(self, cfg)
-        L, d = cfg.num_layers, cfg.d_model
-        self.layers.mlp = nn.Module()
-        for name, shape in (("w_gate", (d, cfg.d_ff)), ("w_up", (d, cfg.d_ff)),
-                            ("w_down", (cfg.d_ff, d))):
-            setattr(self.layers.mlp, name, meta_param(L, *shape))
+        meta_decoder(self, cfg, mlp=True)
 
 
-def init_layer(generator: torch.Generator, cfg: ModelConfig) -> Params:
+def init_block(generator: torch.Generator, cfg: ModelConfig, qkv_bias: bool = False
+               ) -> Params:
+    """One pre-norm attention block as the reference initialises it: the
+    attention (QKV biases if ``qkv_bias``), the gated MLP, norms of 1."""
     dev = generator.device
     return {
         "attn": attn.init_attention(
             generator, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-            cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias),
+            cfg.resolved_head_dim, qkv_bias=qkv_bias),
         "mlp": init_gated_mlp(generator, cfg.d_model, cfg.d_ff),
         "ln1": torch.ones((cfg.d_model,), dtype=torch.float32, device=dev),
         "ln2": torch.ones((cfg.d_model,), dtype=torch.float32, device=dev),
     }
+
+
+def init_layer(generator: torch.Generator, cfg: ModelConfig) -> Params:
+    return init_block(generator, cfg, cfg.qkv_bias)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:

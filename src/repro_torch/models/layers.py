@@ -10,11 +10,13 @@ promotes both operands; ``torch.einsum`` refuses mixed operands, so
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.kernels._math import logsumexp
 
 Params = Dict[str, torch.Tensor]
 
@@ -49,24 +51,44 @@ def flatten(tree: dict, prefix: str = "") -> Params:
     return out
 
 
-def split_layers(params: Params, num_layers: int) -> List[dict]:
-    """Each layer's params, nested as the reference's scan body sees them
-    (``layers.attn.wq`` of layer i → ``lps[i]["attn"]["wq"]``).
+def nest(params: Params, prefix: str) -> dict:
+    """The leaves named ``prefix`` + path, nested by path (``shared_attn.``'s
+    ``attn.wq`` → ``out["attn"]["wq"]``)."""
+    out: dict = {}
+    for name, p in params.items():
+        if name.startswith(prefix):
+            *group, leaf = name[len(prefix):].split(".")
+            node = out
+            for g in group:
+                node = node.setdefault(g, {})
+            node[leaf] = p
+    return out
 
-    Each stacked (L, …) leaf is split once with ``torch.unbind``, whose
+
+def split_layers(params: Params, num_layers: int, prefix: str = "layers.",
+                 per: int = 0) -> list:
+    """Each layer's params, nested as the reference's scan body sees them
+    (``layers.attn.wq`` of layer i → ``lps[i]["attn"]["wq"]``), for the
+    leaves named ``prefix`` + path, stacked on a leading (num_layers, …)
+    axis. With ``per`` > 0 the leaves are a two-level stack (num_layers,
+    per, …), as a scan over super-blocks of ``per`` layers holds them, and
+    ``lps[i][j]`` is layer j of super-block i.
+
+    Each stacked leaf is split with ``torch.unbind`` (once per level), whose
     backward is one ``stack`` into the leaf's gradient. Indexing the leaf per
     layer instead would make each layer's backward zero-fill and add a
     gradient the size of the whole stack (L² bytes per step, as the
     reference's ``lax.scan`` does not).
     """
-    lps: List[dict] = [{} for _ in range(num_layers)]
+    lps: list = [[{} for _ in range(per)] if per else {} for _ in range(num_layers)]
     for name, p in params.items():
-        if name.startswith("layers."):
-            *group, leaf = name[len("layers."):].split(".")
+        if name.startswith(prefix):
+            *group, leaf = name[len(prefix):].split(".")
             for lp, p_i in zip(lps, torch.unbind(p, 0)):
-                for g in group:
-                    lp = lp.setdefault(g, {})
-                lp[leaf] = p_i
+                for lq, p_ij in (zip(lp, torch.unbind(p_i, 0)) if per else [(lp, p_i)]):
+                    for g in group:
+                        lq = lq.setdefault(g, {})
+                    lq[leaf] = p_ij
     return lps
 
 
@@ -222,7 +244,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token CE in f32. labels: int ids; mask optional weights."""
     logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
+    logz = logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
     nll = logz - gold
     if mask is None:

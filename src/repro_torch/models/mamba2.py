@@ -32,6 +32,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import dense
 from repro_torch.kernels._math import exp as _exp
 from repro_torch.models.layers import (DEFAULT_DTYPE, Params, cross_entropy,
                                        dense_init, einsum, embed_tokens,
@@ -54,22 +55,24 @@ def _block_shapes(cfg: ModelConfig):
             ("norm", (di,), f32), ("out_proj", (di, d), DEFAULT_DTYPE))
 
 
+def meta_layer(module: nn.Module, cfg: ModelConfig, *stack: int) -> None:
+    """One Mamba2 layer's weights (its block and pre-norm) under ``module``
+    (meta device), each with the leading ``stack`` dims."""
+    module.block = nn.Module()
+    for name, shape, dtype in _block_shapes(cfg):
+        setattr(module.block, name, meta_param(*stack, *shape, dtype=dtype))
+    module.ln = meta_param(*stack, cfg.d_model, dtype=torch.float32)
+
+
 class Mamba2LM(nn.Module):
     """Names, shapes and dtypes of the mamba2 decoder's weights."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        L, d = cfg.num_layers, cfg.d_model
-        self.embed = nn.Module()
-        self.embed.tok_embed = meta_param(cfg.padded_vocab, d)
-        if not cfg.tie_embeddings:
-            self.embed.unembed = meta_param(d, cfg.padded_vocab)
+        dense.meta_embed(self, cfg)
         self.layers = nn.Module()
-        self.layers.block = nn.Module()
-        for name, shape, dtype in _block_shapes(cfg):
-            setattr(self.layers.block, name, meta_param(L, *shape, dtype=dtype))
-        self.layers.ln = meta_param(L, d, dtype=torch.float32)
-        self.final_norm = meta_param(d, dtype=torch.float32)
+        meta_layer(self.layers, cfg, cfg.num_layers)
+        self.final_norm = meta_param(cfg.d_model, dtype=torch.float32)
 
 
 def init_block(generator: torch.Generator, cfg: ModelConfig) -> Params:

@@ -6,8 +6,10 @@ Same surface as ``repro.models.model`` for the ported families:
   loss(params, batch)      → scalar f32 loss
   forward(params, batch)   → logits
 
-The resnet, dense, ssm (mamba2) and moe families are ported; decode steps
-wait for the serving slice.
+Every family of the reference is ported (resnet, dense, ssm (mamba2), moe,
+hybrid, encoder, vlm); decode steps wait for the serving slice. The
+encoder's ``forward`` reads ``batch["frames"]`` (no mask, as the
+reference's), the vlm's ``batch["tokens"]`` and ``batch["vision_embeds"]``.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import dense, mamba2, moe, resnet
+from repro_torch.models import dense, encoder, hybrid, mamba2, moe, resnet, vlm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +66,28 @@ def build_model(cfg: ModelConfig) -> Model:
             loss=lambda p, b: moe.loss_fn(cfg, p, b),
             forward=lambda p, b: moe.forward(cfg, p, b["tokens"])[0],
         )
-    raise NotImplementedError(
-        f"model family '{cfg.family}' is not ported; only 'resnet', 'dense', 'ssm' "
-        "and 'moe' are")
+    if cfg.family == "hybrid":
+        return Model(
+            cfg=cfg,
+            module=hybrid.HybridLM(cfg),
+            init_params=lambda gen: hybrid.init_params(cfg, gen),
+            loss=lambda p, b: hybrid.loss_fn(cfg, p, b),
+            forward=lambda p, b: hybrid.forward(cfg, p, b["tokens"]),
+        )
+    if cfg.family == "encoder":
+        return Model(
+            cfg=cfg,
+            module=encoder.EncoderLM(cfg),
+            init_params=lambda gen: encoder.init_params(cfg, gen),
+            loss=lambda p, b: encoder.loss_fn(cfg, p, b),
+            forward=lambda p, b: encoder.forward(cfg, p, b["frames"]),
+        )
+    if cfg.family == "vlm":
+        return Model(
+            cfg=cfg,
+            module=vlm.VisionLM(cfg),
+            init_params=lambda gen: vlm.init_params(cfg, gen),
+            loss=lambda p, b: vlm.loss_fn(cfg, p, b),
+            forward=lambda p, b: vlm.forward(cfg, p, b["tokens"], b["vision_embeds"]),
+        )
+    raise ValueError(f"unknown family '{cfg.family}'")

@@ -988,3 +988,107 @@ def test_cuda_grouped_matmul_refuses_bad_operands(cuda_device):
         tgmm.gmm_cuda(torch.zeros(8, 16, device=cuda_device).t(), rhs, sizes)
     with pytest.raises(ValueError, match="float32 or both bfloat16"):
         tgmm.grouped_matmul_fwd(xs.to(torch.float16), rhs.to(torch.float16), sizes)
+
+
+# ---------------------------------------------------------------------------
+# The hybrid, encoder and vlm paths: K5 and K7 at their shapes, and the
+# hybrid on the card against the CPU port
+# ---------------------------------------------------------------------------
+
+# (B, S, T, H, KVH, D, causal, window): chip_smoke.py's new K5 cases: the
+# zamba2 path (a cohort of 4 clients × batch 4 at seq 256, 32 MHA heads of
+# 112), the vlm's cross-attention over 1 601 vision keys (25 full 64-key
+# tiles and one of 1) at 4 096 queries and at 32 (S < T), and hubert-xlarge
+# (16 MHA heads of 80, zero-padded to 128 in the kernel's shared memory).
+PATH_FLASH_CASES = [
+    (16, 256, 256, 32, 32, 112, True, 0),
+    (1, 4096, 1601, 64, 8, 128, False, 0),
+    (1, 32, 1601, 64, 8, 128, False, 0),
+    (2, 4096, 4096, 16, 16, 80, False, 0),
+]
+PATH_FLASH_IDS = ["zamba-path", "vlm-cross", "vlm-cross-s32", "hubert"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", PATH_FLASH_CASES, ids=PATH_FLASH_IDS)
+def test_cuda_flash_attention_matches_plain_at_the_new_paths(cuda_device, case, dtype):
+    causal, window = case[6], case[7]
+    q, k, v = _qkv(case, dtype, cuda_device, seed=3)
+    before = tfa.LAUNCHES["flash_attention"]
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention"] == before + 1
+    o_p, lse_p = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert o.dtype == dtype and o.shape == q.shape
+    assert_flash_close(o, o_p)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunk_matches_plain_at_the_zamba_path(cuda_device):
+    """K7 at the zamba2 path's shape: B 16 (4 clients × batch 4), one
+    256-row chunk, 112 heads of 64, state N 64."""
+    from repro_torch.kernels import ssd_scan as tssd
+
+    bsz, s, cl, nh, hp, n = 16, 256, 256, 112, 64, 64
+    x, dt, a, b, c = _ssd_inputs(bsz, s, nh, hp, n, cuda_device, seed=4)
+    xc, dtc, bc, cc = tssd.to_chunks(x, dt, b, c, cl)
+    before = tssd.LAUNCHES["ssd_chunk"]
+    got = tssd.ssd_chunk(xc, dtc, a.expand(bsz, nh), bc, cc)
+    torch.cuda.synchronize()
+    assert tssd.LAUNCHES["ssd_chunk"] == before + 1
+    want = tssd.ssd_chunk_plain(xc, dtc, a.expand(bsz, nh), bc, cc)
+    for g, w in zip(got, want):
+        _close_to_max(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_hybrid_forward_and_gradient_match_the_cpu_port(cuda_device, dtype, monkeypatch):
+    """The zamba2 smoke variant (2 layers: a Mamba2 layer through K7, the
+    shared block through K5) on the card against the same model on the CPU
+    (the plain versions), on the same seeded weights and tokens. Every dtype
+    f32 (``DEFAULT_DTYPE`` patched in hybrid and mamba2): logits within 1e-4
+    of the largest, loss rtol 1e-5, gradients within 1e-4 of each leaf's
+    largest entry (K7's 3xTF32 products err ~1e-4 relative against f64, as
+    the f32 plain version does). bf16: logits within 4 bf16 ulp of the
+    largest, loss rtol 1e-3, gradients within 3 % of each leaf's largest."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.kernels import ssd_scan as tssd
+    from repro_torch.models import build_model, hybrid, mamba2
+
+    if dtype == torch.float32:
+        for module in (hybrid, mamba2):
+            monkeypatch.setattr(module, "DEFAULT_DTYPE", torch.float32)
+    model = build_model(smoke_variant(get_config("zamba2-7b")))
+    params = model.init_params(torch.Generator().manual_seed(0))
+    if dtype == torch.float32:
+        params = {k: v.float() for k, v in params.items()}
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks, "labels": toks}
+    on_card = {k: v.to(cuda_device) for k, v in params.items()}
+    batch_card = {k: v.to(cuda_device) for k, v in batch.items()}
+    before = (tfa.LAUNCHES["flash_attention"], tssd.LAUNCHES["ssd_chunk"])
+    logits = model.forward(on_card, batch_card)
+    loss, grads = torch.func.grad_and_value(model.loss)(on_card, batch_card)[::-1]
+    torch.cuda.synchronize()
+    # Forward and the loss's forward: one K5 and one K7 launch each.
+    assert (tfa.LAUNCHES["flash_attention"], tssd.LAUNCHES["ssd_chunk"]) == \
+        (before[0] + 2, before[1] + 2)
+    want_logits = model.forward(params, batch)
+    want_loss, want_grads = torch.func.grad_and_value(model.loss)(params, batch)[::-1]
+    top = float(want_logits.float().abs().max())
+    gap = float((logits.cpu().float() - want_logits.float()).abs().max())
+    if dtype == torch.float32:
+        assert gap <= 1e-4 * top, gap
+        torch.testing.assert_close(float(loss), float(want_loss), rtol=1e-5, atol=0)
+        frac = 1e-4
+    else:
+        assert gap <= 4 * float(_bf16_ulp(torch.tensor(top))), gap
+        torch.testing.assert_close(float(loss), float(want_loss), rtol=1e-3, atol=0)
+        frac = 0.03
+    for name, g in grads.items():
+        w = want_grads[name].float()
+        assert float((g.cpu().float() - w).abs().max()) <= frac * float(w.abs().max()), name

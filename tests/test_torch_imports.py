@@ -100,6 +100,18 @@ SLICE6_MODULES = ("repro_torch.core.theory", "repro_torch.core.selection",
                   "repro_torch.fed.server", "repro_torch.fed.client",
                   "repro_torch.data.synthetic", "repro_torch.examples.paper_reproduction")
 
+# The modules slice 7 added or extended.
+SLICE7_MODULES = ("repro_torch", "repro_torch.configs.base", "repro_torch.configs.registry",
+                  "repro_torch.configs.shapes", "repro_torch.configs.zamba2_7b",
+                  "repro_torch.configs.hubert_xlarge",
+                  "repro_torch.configs.llama_3_2_vision_90b", "repro_torch.configs.minicpm_2b",
+                  "repro_torch.configs.yi_9b", "repro_torch.configs.llama3_405b",
+                  "repro_torch.kernels._math", "repro_torch.models.layers",
+                  "repro_torch.models.attention", "repro_torch.models.hybrid",
+                  "repro_torch.models.encoder", "repro_torch.models.vlm",
+                  "repro_torch.models.model", "repro_torch.examples.quickstart",
+                  "repro_torch.examples.federated_llm")
+
 
 # One fresh interpreter loads torch and numpy, then forks a child for each
 # module; the child imports that module alone and reports what of JAX and the
@@ -135,7 +147,8 @@ print(json.dumps(found))
 @pytest.fixture(scope="module")
 def loaded_by_import():
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    proc = subprocess.run([sys.executable, "-c", _FORK_EACH, *SLICE6_MODULES],
+    proc = subprocess.run([sys.executable, "-c", _FORK_EACH, *SLICE6_MODULES,
+                           *SLICE7_MODULES],
                           capture_output=True, text=True, timeout=240, env=env)
     assert proc.returncode == 0, proc.stderr
     return json.loads(proc.stdout.splitlines()[-1])
@@ -149,4 +162,13 @@ def test_slice6_module_loads_no_jax_and_no_reference(module, loaded_by_import):
     this checks what an import actually loads)."""
     path = ROOT / "src" / (module.replace(".", "/") + ".py")
     assert path.exists()
+    assert loaded_by_import[module] == [], loaded_by_import[module]
+
+
+@pytest.mark.parametrize("module", SLICE7_MODULES)
+def test_slice7_module_loads_no_jax_and_no_reference(module, loaded_by_import):
+    """As for slice 6: imported alone in a fresh process, the module pulls in
+    neither JAX nor the reference package."""
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    assert path.exists() or (path.parent / path.stem / "__init__.py").exists()
     assert loaded_by_import[module] == [], loaded_by_import[module]
