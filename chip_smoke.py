@@ -128,7 +128,15 @@ Phases, in order; any failure raises and the script exits nonzero:
      cross layer, whose two tanh gates are set to 0.5 (VLM_GATE) so that the
      cross-attention counts. Phases 10–12 print wall time, peak memory and a
      profile (idle share, top ops) as phases 5–7 do.
- 13. A JSON line of per-kernel numbers, then the result line.
+ 13. Slice 8, in a child process of this script that alone sets cuBLAS's
+     workspace for deterministic algorithms: phase 3's federation under
+     async rounds (K1 + K2 fed the virtual clock's staleness row, an
+     availability trace, stragglers, the engine's default draws), killed
+     after round 1 and resumed bitwise from its checkpoint (the default
+     noise generator's state among it), and phase 4's hierarchical
+     federation under async rounds with K4 and with the 'adaptive' edge
+     budgets (phase_async).
+ 14. A JSON line of per-kernel numbers, then the result line.
 
 It needs one card, imports nothing of JAX or of the reference package, and
 exits nonzero without printing a result when torch sees no CUDA device.
@@ -140,6 +148,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1955,12 +1964,404 @@ def phase_table1(dev):
     return launches, summaries
 
 
+# Phase 13 (slice 8): phase 3's federation under async rounds, with slow
+# clients (multipliers ≥ 2.5 miss the 1.5 deadline and carry over) and about
+# a quarter of the clients offline each round.
+ASYNC_ROUNDS = 4
+ASYNC_MULT = (1.0, 3.0, 0.5, 2.5, 1.0, 4.0, 0.8, 1.2, 2.8, 0.6, 1.0, 3.5)
+ASYNC_CFG = dict(deadline=1.5, over_select_frac=0.5, jitter=0.1)
+HIER_ASYNC_ROUNDS = 3
+# Phase 13c's 24 clients: two slow ones, so most edges land by the deadline
+# and the adaptive budgets see several edges' losses a round.
+HIER_ASYNC_SLOW = {5: 3.0, 17: 3.0}
+
+
+def same_run(a, b) -> list:
+    """The series and parameters on which two runs differ (bitwise)."""
+    import torch
+
+    diff = [name for name in ("selected_history", "accuracy", "train_loss", "wall_clock",
+                              "round_staleness")
+            if np.asarray(getattr(a, name)).tobytes() != np.asarray(getattr(b, name)).tobytes()]
+    return diff + [k for k, p in a.params.items()
+                   if p.dtype != b.params[k].dtype
+                   or not torch.equal(p.view(torch.uint8), b.params[k].view(torch.uint8))]
+
+
+def phase_async(dev, err: dict):
+    """Phase 13: slice 8 on the card.
+
+    13a. Flat async rounds on phase 3's full-width federation under
+    heterosel_pallas: each round's dispatch must equal the plain versions'
+    selection on the same state, clock override and draws (K1 + K2's plain
+    versions with the override, the availability re-sample, minus the
+    clients in flight), with K1 and K2 launched once each and the override
+    on (``use_ov``); some round must aggregate a straggler of an earlier
+    round. The runs take the engine's default draws, from its noise
+    generator on the card. 13b. The same run killed after round 1 behind a
+    CheckpointHook and resumed in a fresh engine, which restores the
+    generator's state, must equal the uninterrupted run bitwise (if two
+    uninterrupted runs differ, both are made again under
+    ``torch.use_deterministic_algorithms``). 13c. Phase 4's hierarchical
+    federation under async rounds: heterosel_pallas (K4 once a round against
+    its plain version, cohorts equal to the plain selection's) and
+    'adaptive' (no launch; each edge's cohort within its budget; budgets
+    that move away from the static split and stay within m). Returns the
+    launch counts of 13a's and 13c's checked runs, by path."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import FedConfig, get_config
+    from repro_torch.core.scoring import HeteRoScoreConfig
+    from repro_torch.core.selection import SelectorConfig, dynamic_temperature, gumbel_noise
+    from repro_torch.core.state import score_inputs
+    from repro_torch.data import make_vision_data
+    from repro_torch.fed import (AsyncConfig, AvailabilityTrace, CheckpointHook,
+                                 FederatedSpec, HierarchyConfig, KillAtRound, RoundHook,
+                                 SimulatedPreemption, availability, edge_budgets)
+    from repro_torch.kernels import score_select as tss
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    fed = FedConfig(num_clients=12, participation=0.5, rounds=ASYNC_ROUNDS, local_batch=32,
+                    lr=0.01, mu=0.1, dirichlet_alpha=0.1, seed=0, round_policy="async")
+    data = make_vision_data(fed)
+    model = build_model(get_config("resnet18-cifar10"))
+    avail = AvailabilityTrace(fed.num_clients, p_stay_online=0.75, p_come_online=0.75,
+                              seed=fed.seed).masks(fed.rounds)
+    mult = np.asarray(ASYNC_MULT)
+    acfg = AsyncConfig(**ASYNC_CFG)
+    m_over = math.ceil(fed.num_selected * (1 + acfg.over_select_frac))
+
+    use_ov = []
+    real_select = tss.score_select
+
+    def spy_select(*args, **kwargs):
+        use_ov.append(kwargs["use_ov"])
+        return real_select(*args, **kwargs)
+
+    class CheckAsync(RoundHook):
+        """Per round: the dispatch equals the plain versions' selection on the
+        same state, override and draws; K1 and K2 launched once each, K2 with
+        the override on."""
+
+        def __init__(self):
+            self.rows = []
+
+        def on_run_start(self, ctx):
+            # Each round's default draws are taken once: this hook reads
+            # them before the engine's selection does.
+            eng, memo = ctx.engine, {}
+            base = eng.noise
+
+            def noise(t, k):
+                if t not in memo:
+                    memo[t] = base(t, k)
+                return memo[t]
+
+            eng.noise = noise
+
+        def on_round_start(self, ctx):
+            t, eng = ctx.round_idx, ctx.engine
+            stale = eng.staleness_override()
+            draws = eng.round_noise(t)
+            _, probs, _ = tss.fused_score_select_plain(
+                *score_inputs(eng.state), round_idx=t,
+                tau=dynamic_temperature(t, SelectorConfig(num_selected=m_over)), m=m_over,
+                gumbel=draws["gumbel"], cfg=HeteRoScoreConfig(), staleness_override=stale)
+            mask, _ = availability.remask(draws["remask"], probs, avail[t], m_over)
+            self.expected = mask.cpu().numpy() & ~eng._in_flight
+            self.stale = stale.cpu().numpy()
+            self.before = dict(tss.LAUNCHES)
+            use_ov.clear()
+
+        def on_round_end(self, ctx):
+            t, eng = ctx.round_idx, ctx.engine
+            grew = {n: tss.LAUNCHES[n] - self.before[n] for n in tss.LAUNCHES}
+            if grew != {"score_stats": 1, "score_select": 1, "score_probs": 0,
+                        "segment_probs": 0} or use_ov != [True]:
+                raise AssertionError(f"round {t}: launches {grew}, use_ov {use_ov}")
+            if not np.array_equal(ctx.mask, self.expected):
+                raise AssertionError(f"round {t}: dispatch {np.flatnonzero(ctx.mask)} != "
+                                     f"plain {np.flatnonzero(self.expected)}")
+            if ctx.mask[~avail[t]].any():
+                raise AssertionError(f"round {t}: an offline client was dispatched")
+            finite = self.stale[self.stale < 1e5]
+            row = {"round": t, "dispatch": np.flatnonzero(ctx.mask).tolist(),
+                   "arrivals": ctx.num_arrivals, "stragglers": ctx.num_stragglers,
+                   "wall_clock": eng.wall_clock[-1],
+                   "round_staleness": eng.round_staleness[-1],
+                   "override_finite": [float(x) for x in finite],
+                   "offline": int((~avail[t]).sum())}
+            self.rows.append(row)
+            print(f"round {t}: dispatch == plain {row['dispatch']}; arrivals "
+                  f"{row['arrivals']}, stragglers {row['stragglers']}, wall_clock "
+                  f"{row['wall_clock']:.4f}, round_staleness {row['round_staleness']:.4f}, "
+                  f"offline {row['offline']}, override {row['override_finite']}", flush=True)
+
+    ckpt_ms = {"save": [], "restore": []}
+
+    class TimedCheckpoint(CheckpointHook):
+        """CheckpointHook with its save and restore host times recorded."""
+
+        def on_run_start(self, ctx):
+            t0 = time.perf_counter()
+            super().on_run_start(ctx)
+            if ctx.engine.start_round:
+                ckpt_ms["restore"].append((time.perf_counter() - t0) * 1e3)
+
+        def on_round_end(self, ctx):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().on_round_end(ctx)
+            ckpt_ms["save"].append((time.perf_counter() - t0) * 1e3)
+
+    def flat_run(hooks):
+        return FederatedSpec(model, fed, data, selector="heterosel_pallas", steps_per_round=4,
+                             system=mult, async_cfg=acfg, availability=avail, device=dev,
+                             hooks=hooks).build()
+
+    def checked_run():
+        check = CheckAsync()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        tss.score_select = spy_select
+        try:
+            t0 = time.perf_counter()
+            eng = flat_run([check])
+            res = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            tss.score_select = real_select
+        return res, eng, check, wall, launch_counts(), torch.cuda.max_memory_allocated(dev)
+
+    # 13a, then a second uninterrupted run (13b's determinism check).
+    res_a, eng_a, check, wall, launches, peak = checked_run()
+    res_b = flat_run([]).run()
+    diff = same_run(res_a, res_b)
+    forced = bool(diff)
+    if forced:
+        print(f"phase 13: two uninterrupted runs differ on {len(diff)} series and "
+              f"parameters {diff[:6]}; 13a and 13b again under "
+              "torch.use_deterministic_algorithms(True)", flush=True)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        res_a, eng_a, check, wall, launches, peak = checked_run()
+        res_b = flat_run([]).run()
+        diff = same_run(res_a, res_b)
+        if diff:
+            raise AssertionError(f"deterministic runs still differ on {diff[:6]}")
+    if launches != {"score_stats": fed.rounds, "score_select": fed.rounds,
+                    "score_probs": 0, "segment_probs": 0, "sharded_score_select": 0,
+                    "flash_attention": 0, "grouped_matmul": 0, "ssd_chunk": 0}:
+        raise AssertionError(f"async path launches {launches}")
+    if eng_a.stragglers_carried == 0 or not np.any(res_a.round_staleness > 0):
+        raise AssertionError("no straggler of an earlier round was aggregated")
+    if not np.all(np.isfinite(res_a.train_loss)) or not all(
+            bool(torch.isfinite(p).all()) for p in res_a.params.values()):
+        raise AssertionError("non-finite loss or parameters")
+    print(f"phase 13a: async resnet18-cifar10, K={fed.num_clients} m={fed.num_selected} "
+          f"m_over={m_over}, {fed.rounds} rounds x 4 steps x batch {fed.local_batch}, "
+          f"deadline {acfg.deadline}, jitter {acfg.jitter}, wall {wall:.2f} s, "
+          f"stragglers carried {eng_a.stragglers_carried}", flush=True)
+    for t in range(fed.rounds):
+        print(f"  round {t}: select_ms {res_a.select_ms[t]:.3f}  execute_ms "
+              f"{res_a.execute_ms[t]:.3f}  aggregate_ms {res_a.aggregate_ms[t]:.3f}  "
+              f"eval_ms {res_a.eval_ms[t]:.3f}", flush=True)
+    print(f"  wall_clock {res_a.wall_clock.tolist()}", flush=True)
+    print(f"  round_staleness {res_a.round_staleness.tolist()}", flush=True)
+    print(f"  train_loss {res_a.train_loss.tolist()}", flush=True)
+    print(f"  max_memory_allocated {peak} bytes", flush=True)
+    print(f"  launches {json.dumps(launches)}", flush=True)
+    print(f"phase 13b: determinism {'forced' if forced else 'not forced'}: two "
+          "uninterrupted runs equal bitwise", flush=True)
+
+    # 13b: kill after round 1, resume in a fresh engine.
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        try:
+            flat_run([TimedCheckpoint(ckdir, keep_last=1), KillAtRound(1)]).run()
+            raise AssertionError("KillAtRound(1) did not stop the run")
+        except SimulatedPreemption as stop:   # the kill this phase asks for
+            print(f"phase 13b: {stop}", flush=True)
+        snap_bytes = sum(os.path.getsize(os.path.join(ckdir, f)) for f in os.listdir(ckdir))
+        eng_c = flat_run([TimedCheckpoint(ckdir, keep_last=1)])
+        res_c = eng_c.run()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    if eng_c.start_round != 2:
+        raise AssertionError(f"resumed from round {eng_c.start_round}, want 2")
+    gens = {name: g.device.type for name, g in eng_c.generators.items()}
+    if gens != {"noise": "cuda"}:
+        raise AssertionError(f"the resumed run's default draws come from {gens}")
+    diff = same_run(res_a, res_c)
+    if diff:
+        raise AssertionError(f"the resumed run differs from the uninterrupted one on {diff[:6]}")
+    print(f"phase 13b: killed after round 1 and resumed from round 2 (the card's noise "
+          f"generator state restored): selection history, "
+          f"metric, train_loss, wall_clock, round_staleness and all {len(res_c.params)} "
+          f"parameters bitwise equal; snapshot {snap_bytes} bytes; save_ms "
+          f"{[round(x, 3) for x in ckpt_ms['save']]}; restore_ms "
+          f"{[round(x, 3) for x in ckpt_ms['restore']]}", flush=True)
+    release(dev)
+
+    # 13c: phase 4's federation under async rounds.
+    hfed = FedConfig(num_clients=24, participation=0.5, rounds=HIER_ASYNC_ROUNDS,
+                     local_batch=32, lr=0.01, mu=0.1, dirichlet_alpha=0.1, seed=0,
+                     topology="hierarchical", edge_count=4, round_policy="async")
+    hdata = make_vision_data(hfed)
+    hmult = np.ones(hfed.num_clients)
+    hmult[list(HIER_ASYNC_SLOW)] = list(HIER_ASYNC_SLOW.values())
+    drawn = {}
+    noise_gen = torch.Generator(device=dev).manual_seed(hfed.seed)
+
+    def edge_noise(t, stream, n):
+        if (t, stream) not in drawn:
+            drawn[t, stream] = gumbel_noise(noise_gen, n)
+        return drawn[t, stream]
+
+    class CheckHier(RoundHook):
+        """Per round under heterosel_pallas: the dispatch equals the plain
+        selection's on the same state and draws (through K4's plain version,
+        whose probabilities K4's are held against). Under 'adaptive', which
+        has no kernel: no launch, and each edge's cohort within the budget
+        it was dispatched under."""
+
+        def __init__(self, selector):
+            self.pallas = selector == "heterosel_pallas"
+            self.selector = selector
+            self.max_abs_err = 0.0
+            self.budgets = []
+
+        def on_round_start(self, ctx):
+            t, eng = ctx.round_idx, ctx.engine
+            if self.pallas:
+                picks = eng.select_round(t, scorer=tss.segmented_score_probs_plain)
+                self.plain_out = eng.segment_out
+                self.expected = np.zeros(hfed.num_clients, bool)
+                for _, members in picks:
+                    self.expected[members] = True
+            self.start_budgets = np.asarray(eng.budgets).copy()
+            self.before = dict(tss.LAUNCHES)
+
+        def on_round_end(self, ctx):
+            t, eng = ctx.round_idx, ctx.engine
+            grew = {n: tss.LAUNCHES[n] - self.before[n] for n in tss.LAUNCHES}
+            if grew != {"score_stats": 0, "score_select": 0, "score_probs": 0,
+                        "segment_probs": int(self.pallas)}:
+                raise AssertionError(f"round {t}: launches {grew}")
+            if self.pallas:
+                (pk, sk), (pp, sp) = eng.segment_out, self.plain_out
+                self.max_abs_err = max(self.max_abs_err,
+                                       check_close(f"round {t} K4 scores", sk, sp, atol=1e-6),
+                                       check_close(f"round {t} K4 probs", pk, pp, atol=1e-30))
+                if not np.array_equal(ctx.mask, self.expected):
+                    raise AssertionError(f"round {t}: dispatch {np.flatnonzero(ctx.mask)} != "
+                                         f"plain {np.flatnonzero(self.expected)}")
+            else:
+                per_edge = np.bincount(eng.partition.assignment[ctx.mask],
+                                       minlength=eng.edge_count)
+                if (per_edge > self.start_budgets).any():
+                    raise AssertionError(f"round {t}: cohorts {per_edge.tolist()} over the "
+                                         f"budgets {self.start_budgets.tolist()}")
+            self.budgets.append(np.asarray(eng.budgets).tolist())
+            what = "dispatch == plain" if self.pallas else "dispatch within budgets"
+            print(f"round {t} ({self.selector}): {what} "
+                  f"{np.flatnonzero(ctx.mask).tolist()}; budgets {self.budgets[-1]}; cloud "
+                  f"arrivals {ctx.num_arrivals}, stragglers {ctx.num_stragglers}, "
+                  f"wall_clock {eng.wall_clock[-1]:.4f}", flush=True)
+
+    hier_launches = {}
+    for selector in ("heterosel_pallas", "adaptive"):
+        check = CheckHier(selector)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        eng = FederatedSpec(model, hfed, hdata, selector=selector, steps_per_round=4,
+                            system=hmult, async_cfg=AsyncConfig(deadline=1.5, jitter=0.1),
+                            hier_cfg=HierarchyConfig(edges_per_round=3 if selector ==
+                                                     "heterosel_pallas" else 0),
+                            device=dev, edge_noise=edge_noise, hooks=[check]).build()
+        res = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        if selector == "heterosel_pallas":
+            hier_launches = counts
+            if counts["segment_probs"] != hfed.rounds or sum(counts.values()) != hfed.rounds:
+                raise AssertionError(f"hierarchical async launches {counts}")
+            err["segment_probs"] = max(err["segment_probs"], check.max_abs_err)
+        else:
+            static = edge_budgets(hfed.num_selected, eng.partition.sizes).tolist()
+            if sum(counts.values()) or all(b == static for b in check.budgets) \
+                    or any(sum(b) > hfed.num_selected for b in check.budgets):
+                raise AssertionError(f"adaptive: launches {counts}, budgets {check.budgets} "
+                                     f"(static {static})")
+        if not np.all(np.isfinite(res.train_loss)):
+            raise AssertionError(f"non-finite train loss {res.train_loss}")
+        print(f"phase 13c: hierarchical async {selector}, K={hfed.num_clients} "
+              f"E={hfed.edge_count}, {hfed.rounds} rounds, wall {wall:.2f} s, cloud_uploads "
+              f"{res.cloud_uploads.tolist()}, wall_clock {res.wall_clock.tolist()}, "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated(dev)} bytes, "
+              f"launches {json.dumps(counts)}", flush=True)
+        for t in range(hfed.rounds):
+            print(f"  round {t}: select_ms {res.select_ms[t]:.3f}  execute_ms "
+                  f"{res.execute_ms[t]:.3f}  aggregate_ms {res.aggregate_ms[t]:.3f}",
+                  flush=True)
+    if forced:
+        torch.use_deterministic_algorithms(False)
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, hier_launches
+
+
+def run_phase_async(err: dict):
+    """Phase 13 in a child process of this script, with the cuBLAS workspace
+    setting that deterministic algorithms require (cuBLAS reads it when a
+    handle is made), so phases 1-12 run with the default. The child reuses
+    the kernels built on disk. Returns its launch counts by path and folds
+    its K4 error into ``err``."""
+    import tempfile
+
+    fd, out = tempfile.mkstemp(prefix="chip_smoke_phase13_", suffix=".json")
+    os.close(fd)
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phase-13",
+                               out], env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+        if proc.returncode != 0:
+            raise RuntimeError(f"phase 13's process exited with {proc.returncode}")
+        with open(out) as f:
+            got = json.load(f)
+    finally:
+        os.unlink(out)
+    print(f"phase 13: its process took {time.perf_counter() - t0:.1f} s", flush=True)
+    err["segment_probs"] = max(err["segment_probs"], got["segment_probs_err"])
+    return got["async"], got["async_hierarchical"]
+
+
+def phase_async_child(out: str) -> int:
+    """The child of ``run_phase_async``: phase 13, its result into ``out``."""
+    from repro_torch.device import resolve_device
+
+    err = {"segment_probs": 0.0}
+    flat, hier = phase_async(resolve_device("cuda"), err)
+    with open(out, "w") as f:
+        json.dump({"async": flat, "async_hierarchical": hier,
+                   "segment_probs_err": err["segment_probs"]}, f)
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--phase-13"]:
+        return phase_async_child(sys.argv[2])
     from repro_torch.configs import expert_share, get_config
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
@@ -2064,6 +2465,9 @@ def main() -> int:
     paths["vlm"], vlm_gap = phase_visit(dev, 12, cfg, VLM_BATCH, gates=VLM_GATE)
     release(dev)
     lap(12)
+    paths["async"], paths["async_hierarchical"] = run_phase_async(err)
+    release(dev)
+    lap(13)
 
     def launches(name):
         by_path = {p: counts[name] for p, counts in paths.items()}

@@ -4,14 +4,19 @@ HeteRo-Select: softmax over scores with dynamic temperature
 τ(t) = τ0·(1 − 0.5·min(t/100, 1)), then m clients without replacement by
 Gumbel-top-m. Baselines (paper Sec V): ``random`` (uniform, FedAvg),
 ``power_of_choice`` (d uniform candidates, the m with the highest loss) and
-``oort`` (statistical × system utility with an explore split).
+``oort`` (statistical × system utility with an explore split). ``adaptive``
+(heterogeneity-guided sampling, arXiv:2310.00198) rescales the softmax
+temperature by the observed spread of client losses; the hierarchical
+engine pairs it with ``core.adaptive.AdaptiveBudgets``.
 
 torch cannot reproduce ``jax.random``, so every selector takes its random
 draws as its first argument: ``(draws, state, round_idx) ->
 (selected_mask, probs)``. ``draws`` is the (K,) f32 Gumbel row, or a mapping
 of named (K,) rows (``DRAW_NAMES``) for a selector that takes more than one
 (``selector_draws``). The engine draws them (``draw``) or takes them from
-the caller.
+the caller. ``make_async_selector`` gives the asynchronous engine's 4-argument
+selectors, ``(draws, state, round_idx, staleness)``: the virtual clock's
+(K,) staleness takes the place of the round counter in Eq 7.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ from repro_torch.kernels.score_select import order_keys
 
 Draws = Union[torch.Tensor, Mapping[str, torch.Tensor]]
 SelectFn = Callable[[Draws, ClientState, int], Tuple[torch.Tensor, torch.Tensor]]
+AsyncSelectFn = Callable[[Draws, ClientState, int, torch.Tensor],
+                         Tuple[torch.Tensor, torch.Tensor]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +53,13 @@ class SelectorConfig:
     # Score + softmax + sampling through the fused kernels
     # (kernels.score_select); additive form only.
     use_fused_kernel: bool = False
+    # 'adaptive' temperature controller: τ ← τ(t)·clip(1 + gain·(cv − ref),
+    # scale_min, scale_max), cv the observed-loss coefficient of variation
+    # (no observation yet ⇒ scale 1, plain heterosel).
+    tau_adapt_gain: float = 2.0
+    tau_adapt_ref: float = 0.25
+    tau_scale_min: float = 0.5
+    tau_scale_max: float = 2.0
 
 
 def gumbel_noise(generator: torch.Generator, k: int) -> torch.Tensor:
@@ -59,10 +73,14 @@ POC_JITTER = 1e-6   # Power-of-Choice's tie-breaking jitter is U[0, POC_JITTER)
 
 # The named (K,) f32 draws a selector can take: "gumbel", standard Gumbel;
 # "jitter", uniform in [0, POC_JITTER) (the reference's
-# ``uniform(kt, (K,), f32, 0, 1e-6)``, selection.py:194).
+# ``uniform(kt, (K,), f32, 0, 1e-6)``, selection.py:194); "remask", the
+# standard Gumbel row of the availability re-sample (``fed.availability``;
+# the reference's ``gumbel(fold_in(key, 1), (K,))``), drawn only when a run
+# has an availability trace.
 DRAW_NAMES = {
     "gumbel": gumbel_noise,
     "jitter": lambda gen, k: POC_JITTER * torch.rand(k, generator=gen, device=gen.device),
+    "remask": gumbel_noise,
 }
 # Selectors that take more than the one Gumbel row, and the names they take.
 SELECTOR_DRAWS = {"power_of_choice": ("gumbel", "jitter")}
@@ -236,6 +254,46 @@ def oort_select(draws: Draws, state: ClientState, round_idx: int, *,
     return mask, probs
 
 
+def heterogeneity_scale(state: ClientState, sel_cfg: SelectorConfig) -> torch.Tensor:
+    """Temperature rescale from the observed-loss coefficient of variation
+    (reference ``core/selection.py:333``).
+
+    cv = std/mean over the clients with an observed loss; scale =
+    clip(1 + gain·(cv − ref), scale_min, scale_max). No observation yet ⇒
+    cv := ref ⇒ scale 1. A pure function of the ``ClientState``, so the
+    selector needs no controller state of its own.
+    """
+    obs = (state.has_loss > 0).to(torch.float32)
+    loss = state.loss_prev.to(torch.float32)
+    n = torch.sum(obs)
+    mean = torch.sum(loss * obs) / torch.clamp_min(n, 1.0)
+    var = torch.sum(obs * (loss - mean) ** 2) / torch.clamp_min(n, 1.0)
+    cv = torch.sqrt(var) / torch.clamp_min(torch.abs(mean), 1e-6)
+    cv = torch.where(n > 0, cv, sel_cfg.tau_adapt_ref)
+    scale = 1.0 + sel_cfg.tau_adapt_gain * (cv - sel_cfg.tau_adapt_ref)
+    return torch.clamp(scale, sel_cfg.tau_scale_min, sel_cfg.tau_scale_max)
+
+
+def adaptive_select(
+    gumbel: torch.Tensor,
+    state: ClientState,
+    round_idx: int,
+    *,
+    sel_cfg: SelectorConfig,
+    score_cfg: HeteRoScoreConfig,
+    staleness_override: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HeteRo scoring with a heterogeneity-adaptive softmax temperature
+    (reference ``core/selection.py:352``): a wide loss spread gives a hotter
+    softmax (broader exploration), equal losses a cooler one."""
+    tau = (dynamic_temperature(round_idx, sel_cfg).to(state.device)
+           * heterogeneity_scale(state, sel_cfg))
+    scores = compute_scores(state, round_idx, score_cfg, additive=sel_cfg.additive,
+                            staleness_override=staleness_override)
+    probs = selection_probabilities(scores, tau)
+    return sample_clients(gumbel, probs, sel_cfg.num_selected), probs
+
+
 def edge_selection_probs(pooled_state: ClientState, round_idx,
                          sel_cfg: SelectorConfig,
                          score_cfg: HeteRoScoreConfig) -> torch.Tensor:
@@ -248,10 +306,10 @@ def edge_selection_probs(pooled_state: ClientState, round_idx,
     return selection_probabilities(scores, dynamic_temperature(round_idx, sel_cfg))
 
 
-# Names make_selector serves: the paper's five (Table I) and the fused-kernel
-# heterosel. The reference's 'filtered' and 'adaptive' are not ported.
+# Names make_selector serves: the paper's five (Table I), the fused-kernel
+# heterosel and 'adaptive'. The reference's 'filtered' is not ported.
 SELECTORS = ("heterosel", "heterosel_pallas", "heterosel_mult", "random",
-             "power_of_choice", "oort")
+             "power_of_choice", "oort", "adaptive")
 
 
 def make_selector(name: str, sel_cfg: SelectorConfig,
@@ -275,5 +333,48 @@ def make_selector(name: str, sel_cfg: SelectorConfig,
         return functools.partial(power_of_choice_select, sel_cfg=sel_cfg)
     if name == "oort":
         return functools.partial(oort_select, sel_cfg=sel_cfg, speeds=speeds)
+    if name == "adaptive":
+        return functools.partial(adaptive_select, sel_cfg=sel_cfg, score_cfg=score_cfg)
+    raise ValueError(f"unknown or not yet ported selector '{name}': the port "
+                     f"serves {SELECTORS}")
+
+
+def make_async_selector(name: str, sel_cfg: SelectorConfig,
+                        score_cfg: HeteRoScoreConfig | None = None, *,
+                        speeds: Optional[torch.Tensor] = None) -> AsyncSelectFn:
+    """Factory for the 4-argument selectors ``(draws, state, round_idx,
+    staleness)`` of the asynchronous engine (reference
+    ``core/selection.py:451``).
+
+    ``staleness`` is the (K,) f32 clock-measured staleness: elapsed virtual
+    time since each client's update was last aggregated, in reference round
+    durations. HeteRo-Select's freshness term (Eq 7) and Oort's staleness
+    term read it instead of the round counter; ``heterosel_pallas`` hands it
+    to K1 + K2 as the override row (``kernels.ops.heterosel_topm``, the
+    kernel's ``use_ov``). ``random`` and ``power_of_choice`` have no
+    freshness term and ignore it.
+    """
+    score_cfg = score_cfg or HeteRoScoreConfig()
+    if name in ("heterosel", "heterosel_mult", "heterosel_pallas", "adaptive"):
+        base = make_selector(name, sel_cfg, score_cfg)
+
+        def scored_async(draws, state, round_idx, stale):
+            return base(draws, state, round_idx, staleness_override=stale)
+
+        return scored_async
+    if name == "oort":
+
+        def oort_async(draws, state, round_idx, stale):
+            return oort_select(draws, state, round_idx, sel_cfg=sel_cfg, speeds=speeds,
+                               staleness_override=stale)
+
+        return oort_async
+    if name in ("random", "power_of_choice"):
+        base = make_selector(name, sel_cfg, score_cfg)
+
+        def stateless_async(draws, state, round_idx, stale):
+            return base(draws, state, round_idx)
+
+        return stateless_async
     raise ValueError(f"unknown or not yet ported selector '{name}': the port "
                      f"serves {SELECTORS}")

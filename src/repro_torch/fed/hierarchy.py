@@ -1,6 +1,6 @@
-"""Hierarchical two-tier federation: client → edge → cloud, sync rounds.
+"""Hierarchical two-tier federation: client → edge → cloud.
 
-Counterpart of ``repro.fed.hierarchy`` under ``round_policy='sync'``.
+Counterpart of ``repro.fed.hierarchy``.
 Clients hang off edge aggregators and only edge aggregates cross the WAN:
 
   1. **Partition** — the K clients split into E edges once per run
@@ -33,30 +33,57 @@ run bitwise. Host data flows from the one ``np.random.default_rng(seed)``
 stream, edges in ascending id order and each cohort in ascending member
 order, as in the reference.
 
-Async rounds, availability masks, the ``adaptive`` budget controller,
-checkpointing and tracer spans are not ported.
+Both round policies compose (``FedConfig.round_policy``):
+
+  * **sync** — edge rounds are barriers: every active edge's aggregate
+    reaches the cloud in its dispatch round.
+  * **async** — each edge is one event on the ``fed.clock.VirtualClock``:
+    it completes at the max of its cohort's latencies, the cloud closes the
+    round at ``AsyncConfig.deadline``, and straggler edges carry forward as
+    stale arrivals discounted by the FedBuff weight (``BufferedAggregator``).
+    In-flight edges are not re-dispatched, and ``over_select_frac``
+    over-selects at the edge tier.
+
+``availability`` masks thread through the inner stage: each edge's
+selector is wrapped with ``fed.availability.mask_selector`` over the
+edge's mask columns (the segmented path applies the same ``remask`` to
+K4's probabilities), so offline members are never selected; edges stay
+schedulable. With ``selector='adaptive'`` the per-edge budgets are retuned
+online by ``core.adaptive.AdaptiveBudgets`` from each round's mean
+edge-cohort loss. ``CheckpointHook`` composes with both policies: the
+upload series, the budget controller and, under 'async', the clock with its
+in-flight edge cohorts travel through ``extra_state``.
+
+Tracer spans are not ported (``obs/`` is not).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import ckpt as torch_ckpt
+from repro_torch.core.adaptive import AdaptiveBudgets
 from repro_torch.core.scoring import HeteRoScoreConfig
 from repro_torch.core.selection import (SelectorConfig, draw, dynamic_temperature,
                                         edge_selection_probs, gumbel_noise,
-                                        make_selector, sample_clients,
-                                        selector_draws)
+                                        make_selector, sample_clients)
 from repro_torch.core.state import (pool_client_state, score_inputs,
                                     update_client_state)
 from repro_torch.device import synchronize
+from repro_torch.fed import availability as fed_avail
 from repro_torch.fed import server as fed_server
-from repro_torch.fed.engine import (FedAvg, FederatedEngine, FederatedSpec,
-                                    FLResult, RoundContext, WeightedFedAvg)
+from repro_torch.fed.async_engine import (AsyncConfig, drain_due_arrivals,
+                                          resolve_multipliers, upgrade_async_aggregator)
+from repro_torch.fed.clock import LatencyModel, VirtualClock
+from repro_torch.fed.engine import (CohortUpdates, FedAvg, FederatedEngine,
+                                    FederatedSpec, FLResult, RoundContext,
+                                    WeightedFedAvg)
 from repro_torch.fed.partition import EdgePartition, partition_edges
 
 WARP = 32  # the segmented layout's slice width is a whole number of warps
@@ -122,7 +149,8 @@ class EdgeCohort:
     losses: np.ndarray         # (m_e,) per-client mean local loss
     sqnorms: np.ndarray        # (m_e,) per-client ||Δw||²
     weight: float              # cloud combine weight (cohort size or Σ weights)
-    avg_params: Any = None     # the edge aggregate
+    avg_params: Any = None     # the edge aggregate (sync)
+    delta: Any = None          # f32 edge aggregate − dispatch anchor (async)
 
 
 def _host_f32(x) -> np.ndarray:
@@ -132,16 +160,16 @@ def _host_f32(x) -> np.ndarray:
 
 
 class HierarchicalEngine(FederatedEngine):
-    """Two-tier sync rounds; built by ``FederatedSpec.build()`` for
-    ``topology='hierarchical'``."""
+    """Two-tier rounds under either round policy; built by
+    ``FederatedSpec.build()`` for ``topology='hierarchical'``. The flat
+    ``AsyncFederatedEngine`` is not stacked underneath: here the unit of
+    cloud arrival is an edge aggregate, not a client update."""
 
     def __init__(self, spec: FederatedSpec):
         fed = spec.fed
         self.hcfg: HierarchyConfig = spec.hier_cfg or HierarchyConfig()
+        self.policy = spec.resolved_round_policy
         selector = spec.resolved_selector
-        if selector == "adaptive":
-            raise NotImplementedError(
-                "selector='adaptive' (online edge budgets) is not ported yet")
         if fed.edge_count < 1:
             raise ValueError(
                 "topology='hierarchical' requires FedConfig.edge_count ≥ 1 "
@@ -154,12 +182,8 @@ class HierarchicalEngine(FederatedEngine):
                 "edge_count use a 'heterosel*' selector or 'random' (or set "
                 "edges_per_round=0 to dispatch every edge)")
         super().__init__(spec)  # resolves the selector, executor, aggregator
-        if not isinstance(self.aggregator, (FedAvg, WeightedFedAvg)):
-            raise ValueError(
-                f"aggregator {getattr(self.aggregator, 'name', self.aggregator)!r} "
-                "does not compose with the hierarchical cloud stage "
-                "(edge aggregates combine as weighted deltas, not a "
-                "cohort reduce); use 'fedavg' or 'fedavg_weighted'")
+        self._avail = (None if spec.availability is None
+                       else np.asarray(spec.availability, bool))
 
         self.partition: EdgePartition = partition_edges(
             np.asarray(spec.data.label_js), fed.edge_count,
@@ -172,31 +196,67 @@ class HierarchicalEngine(FederatedEngine):
         self._score_cfg = spec.score_cfg or HeteRoScoreConfig()
         self._base_sel = spec.sel_cfg or SelectorConfig(num_selected=fed.num_selected)
         # Outer-stage semantics follow the selector family: HeteRo variants
-        # score pooled edges (multiplicative for heterosel_mult), 'random'
-        # samples edges uniformly.
+        # (and 'adaptive', on its HeteRo base scoring) score pooled edges,
+        # multiplicative for heterosel_mult; 'random' samples edges uniformly.
         self._outer_uniform = selector == "random"
         self._outer_sel_cfg = (dataclasses.replace(self._base_sel, additive=False)
                                if selector == "heterosel_mult" else self._base_sel)
+        # 'adaptive' retunes the edge budgets online from the mean
+        # edge-cohort losses (AdaptiveBudgets) instead of the static split.
+        self._budget_ctl: Optional[AdaptiveBudgets] = None
+        if selector == "adaptive":
+            if fed.edge_budget > 0:
+                raise ValueError(
+                    "selector='adaptive' retunes per-edge budgets online "
+                    "from the global num_selected; an explicit "
+                    "FedConfig.edge_budget conflicts with that — unset it "
+                    "or use a non-adaptive selector")
+            self._budget_ctl = AdaptiveBudgets(fed.num_selected, self.partition.sizes)
 
         # Inner stage: heterosel_pallas scores every edge in one K4 launch
         # over an edge-major relayout (edge e owns slots [e·seg, e·seg + n_e),
         # padding slots gather client 0 and are masked in the kernel); the
-        # other selectors run once per edge on the edge's rows, one selector
-        # per distinct budget.
+        # other selectors run once per edge on the edge's rows.
         self._segmented = self.selector_name == "heterosel_pallas"
         self._seg = -(-max(int(self.partition.sizes.max()), 1) // WARP) * WARP
         self._edge_select: Dict[int, Any] = {}
         if not self._segmented:
-            by_budget: Dict[int, Any] = {}
-            for e in range(self.edge_count):
-                b = int(self.budgets[e])
-                if b > 0 and b not in by_budget:
-                    by_budget[b] = make_selector(
-                        self.selector_name,
-                        dataclasses.replace(self._base_sel, num_selected=b),
-                        self._score_cfg)
-                if b > 0:
-                    self._edge_select[e] = by_budget[b]
+            self._build_edge_selectors()
+
+        if self.policy == "async":
+            self.acfg: AsyncConfig = spec.async_cfg or AsyncConfig()
+            self.latency = LatencyModel(
+                resolve_multipliers(spec.system, spec.data.num_clients),
+                base=self.acfg.base_latency, jitter=self.acfg.jitter)
+            self.aggregator = upgrade_async_aggregator(self.aggregator, self.acfg)
+        else:
+            if spec.async_cfg is not None or spec.system is not None:
+                raise ValueError(
+                    "async_cfg/system are only consumed by round_policy='async'; "
+                    "the sync engine has no wall clock to apply them to")
+            if not isinstance(self.aggregator, (FedAvg, WeightedFedAvg)):
+                raise ValueError(
+                    f"aggregator {getattr(self.aggregator, 'name', self.aggregator)!r} "
+                    "does not compose with the hierarchical cloud stage "
+                    "(edge aggregates combine as weighted deltas, not a "
+                    "cohort reduce); use 'fedavg' or 'fedavg_weighted'")
+
+    def _build_edge_selectors(self) -> None:
+        """Bind a selector to each edge with a non-zero budget, masked to the
+        edge's availability columns when the run has a trace. Called at
+        construction, after every budget move and on restore."""
+        self._edge_select = {}
+        for e in range(self.edge_count):
+            b = int(self.budgets[e])
+            if b == 0:
+                continue
+            select = make_selector(self.selector_name,
+                                   dataclasses.replace(self._base_sel, num_selected=b),
+                                   self._score_cfg)
+            if self._avail is not None:
+                select = fed_avail.mask_selector(
+                    select, self._avail[:, self._members[e]], num_selected=b)
+            self._edge_select[e] = select
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -221,9 +281,17 @@ class HierarchicalEngine(FederatedEngine):
         else:
             gen = torch.Generator(device=dev)
             gen.manual_seed(spec.fed.seed)
-            names = selector_draws(self.selector_name)
+            self.generators["edge_noise"] = gen
+            names = self.draw_names()
             self.edge_noise = lambda t, stream, n: (
                 gumbel_noise(gen, n) if stream == self.edge_count else draw(gen, names, n))
+        if self.policy == "async":
+            self.clock = VirtualClock()
+            self._edge_in_flight = np.zeros(self.edge_count, bool)
+            self.wall_clock: List[float] = []
+            self.round_staleness: List[float] = []
+            self.stragglers_carried = 0
+            self.updates_dropped = 0
 
     def edge_draw(self, t: int, stream: int, n: int):
         """Round t's (n,) f32 draws of ``stream`` on the run's device: the
@@ -238,7 +306,10 @@ class HierarchicalEngine(FederatedEngine):
     # -- the two selection stages ------------------------------------------
 
     def _idle_edges(self) -> List[int]:
-        return [e for e in range(self.edge_count) if self.budgets[e] > 0]
+        busy = (self._edge_in_flight if self.policy == "async"
+                else np.zeros(self.edge_count, bool))
+        return [e for e in range(self.edge_count)
+                if self.budgets[e] > 0 and not busy[e]]
 
     def _choose_edges(self, t: int, idle: List[int]) -> List[int]:
         """Outer cross-edge selection over the idle edges.
@@ -246,9 +317,12 @@ class HierarchicalEngine(FederatedEngine):
         No draw is taken when the outer budget covers every idle edge (which
         keeps E = 1 on the flat run's stream). Otherwise the Gumbel-top-E_sel
         runs in float64 on the host, as the reference's does, so a near-tie
-        picks the same edge.
+        picks the same edge. Under 'async' ⌈E_sel·(1+ε)⌉ edges dispatch, the
+        edge-tier mirror of flat async's client over-selection.
         """
         e_sel = self.hcfg.edges_per_round or self.edge_count
+        if self.policy == "async":
+            e_sel = int(math.ceil(e_sel * (1.0 + self.acfg.over_select_frac)))
         if e_sel >= len(idle):
             return list(idle)
         if self._outer_uniform:
@@ -274,8 +348,10 @@ class HierarchicalEngine(FederatedEngine):
         ``kernels.score_select.segmented_score_probs``' signature: that one
         (K4) by default, or its plain version, which gives the cohort a K4
         run is held against. Its ``(probs, scores)``, each (E·seg,) in the
-        edge-major layout, stay in ``segment_out``. The round's draws are
-        taken through ``edge_noise`` on every call.
+        edge-major layout, stay in ``segment_out``. With an availability
+        trace each edge's probabilities are masked and re-sampled
+        (``fed.availability.remask``). The round's draws are taken through
+        ``edge_noise`` on every call.
         """
         active = self._choose_edges(t, self._idle_edges())
         masks = []
@@ -289,16 +365,21 @@ class HierarchicalEngine(FederatedEngine):
                 seg=self._seg)
             probs_all = self.segment_out[0]
             for e in active:
-                n = len(self._members[e])
+                members = self._members[e]
+                n, budget = len(members), int(self.budgets[e])
                 probs_e = probs_all[e * self._seg:e * self._seg + n]
-                masks.append(sample_clients(self.edge_draw(t, e, n), probs_e,
-                                            int(self.budgets[e])))
+                draws = self.edge_draw(t, e, n)
+                if self._avail is not None:
+                    _, g = fed_avail.split_remask(draws)
+                    mask, _ = fed_avail.remask(g, probs_e, self._avail[t][members], budget)
+                else:
+                    mask = sample_clients(draws, probs_e, budget)
+                masks.append(mask)
         else:
             for e in active:
                 idx = self._member_idx[e]
                 estate = self.state.map(lambda x: x[idx])
-                mask, _ = self._edge_select[e](self.edge_draw(t, e, len(idx)),
-                                               estate, t)
+                mask, _ = self._edge_select[e](self.edge_draw(t, e, len(idx)), estate, t)
                 masks.append(mask)
         picks: List[tuple] = []
         for e, mask in zip(active, masks):
@@ -324,8 +405,10 @@ class HierarchicalEngine(FederatedEngine):
                 weight=ew, avg_params=self.aggregator._mean(cohort)))
         return out
 
-    def _fold_observations(self, ctx: RoundContext, t: int,
-                           cohorts: List[EdgeCohort]) -> None:
+    def _fold_observations(self, ctx: RoundContext, t: int, cohorts: List[EdgeCohort],
+                           dispatched_mask: Optional[np.ndarray] = None) -> None:
+        """Fold the cohorts' observations into the state (the arrivals under
+        'async', where ``ctx.mask`` is the round's dispatch instead)."""
         k = self.spec.data.num_clients
         mask = np.zeros(k, bool)
         obs_loss = np.zeros(k, np.float32)
@@ -341,14 +424,37 @@ class HierarchicalEngine(FederatedEngine):
                 selected_mask=torch.from_numpy(mask).to(dev),
                 observed_loss=torch.from_numpy(obs_loss).to(dev),
                 observed_sqnorm=torch.from_numpy(obs_sqnorm).to(dev))
-        ctx.mask = mask
-        ctx.selected = np.flatnonzero(mask)
+        ctx.mask = mask if dispatched_mask is None else dispatched_mask
+        ctx.selected = np.flatnonzero(ctx.mask)
+        ctx.obs_loss = obs_loss
+        ctx.obs_sqnorm = obs_sqnorm
         ctx.train_loss = (float(np.concatenate([c.losses for c in cohorts]).mean())
                           if cohorts else 0.0)
+        if self._budget_ctl is not None and cohorts:
+            self._retune_budgets(cohorts)
+
+    def _retune_budgets(self, cohorts: List[EdgeCohort]) -> None:
+        """Feed one round's mean edge-cohort losses to ``AdaptiveBudgets``
+        (NaN for the edges that reported nothing) and rebind the per-edge
+        selectors when the apportionment moved."""
+        util = np.full(self.edge_count, np.nan)
+        for c in cohorts:
+            util[c.edge] = float(np.asarray(c.losses, np.float64).mean())
+        new_budgets = self._budget_ctl.observe_round(util)
+        if not np.array_equal(new_budgets, self.budgets):
+            self.budgets = new_budgets
+            self._build_edge_selectors()
 
     # -- rounds ------------------------------------------------------------
 
     def _run_round(self, ctx: RoundContext, t: int, eval_batch: Any) -> None:
+        if self.policy == "async":
+            self._run_round_async(ctx, t, eval_batch)
+        else:
+            self._run_round_sync(ctx, t, eval_batch)
+        self._rounds_done = t + 1
+
+    def _run_round_sync(self, ctx: RoundContext, t: int, eval_batch: Any) -> None:
         dev = self.device
         t0 = time.perf_counter()
         picks = self.select_round(t)
@@ -373,7 +479,150 @@ class HierarchicalEngine(FederatedEngine):
         ctx.aggregate_ms = (t3 - t2) * 1e3
         self._fold_observations(ctx, t, cohorts)
         self._eval(ctx, eval_batch)
+        ctx.sim_time = float(t + 1)
+
+    def _run_round_async(self, ctx: RoundContext, t: int, eval_batch: Any) -> None:
+        dev, acfg = self.device, self.acfg
+        dispatch_time = self.clock.now
+
+        # 1.–2. Dispatch idle edges; each trains now, and its aggregate
+        # reaches the cloud after the max of its cohort's latencies.
+        t0 = time.perf_counter()
+        picks = self.select_round(t)
+        t1 = time.perf_counter()
+        dispatched = np.zeros(self.spec.data.num_clients, bool)
+        for c in self._inner_execute(picks):
+            c.delta = fed_server.params_delta_f32(c.avg_params, self.params)
+            c.avg_params = None  # the anchor-relative delta is what travels
+            lat = float(self.latency.sample(c.selected, self.rng).max())
+            self.clock.schedule(lat, c.edge, t, payload=c)
+            self._edge_in_flight[c.edge] = True
+            dispatched[c.selected] = True
+        synchronize(dev)
+        t2 = time.perf_counter()
+
+        # 3. Close the cloud round at the deadline; straggler edges carry
+        # forward as stale arrivals.
+        kept, dropped = drain_due_arrivals(self.clock, acfg, t, dispatch_time,
+                                           self._edge_in_flight)
+        self.updates_dropped += dropped
+
+        # 4. Buffered aggregation of the arrived edge aggregates.
+        stale = np.asarray([t - ev.dispatch_round for ev in kept], np.float32)
+        arrivals = [ev.payload for ev in kept]
+        if kept:
+            agg_cohort = CohortUpdates(
+                mean_loss=np.asarray([c.losses.mean() for c in arrivals], np.float32),
+                update_sqnorm=np.asarray([c.sqnorms.mean() for c in arrivals], np.float32),
+                delta_list=[c.delta for c in arrivals],
+                staleness=stale,
+                weights=np.asarray([c.weight for c in arrivals], np.float32),
+            )
+            self.params = self.aggregator.reduce(self.params, agg_cohort)
+        self.cloud_uploads.append(len(kept))
+        synchronize(dev)
+        t3 = time.perf_counter()
+        ctx.select_ms = (t1 - t0) * 1e3
+        ctx.execute_ms = (t2 - t1) * 1e3
+        ctx.aggregate_ms = (t3 - t2) * 1e3
+        self._fold_observations(ctx, t, arrivals, dispatched_mask=dispatched)
+
+        n_stragglers = sum(1 for ev in kept if ev.dispatch_round < t)
+        self.stragglers_carried += n_stragglers
+        self.wall_clock.append(self.clock.now)
+        self.round_staleness.append(float(stale.mean()) if len(stale) else 0.0)
+        ctx.sim_time = self.clock.now
+        ctx.num_arrivals = len(kept)
+        ctx.num_stragglers = n_stragglers
+        self._eval(ctx, eval_batch)
 
     def _result(self, extras: Dict[str, Any]) -> FLResult:
         extras.setdefault("cloud_uploads", np.asarray(self.cloud_uploads, np.int64))
+        if self.policy == "async":
+            extras.setdefault("wall_clock", np.asarray(self.wall_clock))
+            extras.setdefault("round_staleness", np.asarray(self.round_staleness))
         return super()._result(extras)
+
+    # -- checkpoint / resume ----------------------------------------------
+    #
+    # The partition is rebuilt from the spec, not persisted; only its edge
+    # count is stamped into the snapshot as a check. Persisted through
+    # extra_state: the upload series, the adaptive budgets and their
+    # controller, and under 'async' the clock with each in-flight EdgeCohort
+    # (its delta as a tree; ids, losses and norms as per-seq arrays), the
+    # in-flight edge mask and the wall-clock series. The snapshot kind names
+    # the policy, so an async snapshot never restores into a sync engine.
+
+    @property
+    def snapshot_kind(self) -> str:
+        return f"{self.policy}/hierarchical"
+
+    def extra_state(self):
+        trees: Dict[str, Any] = {}
+        arrays: Dict[str, np.ndarray] = {
+            "cloud_uploads": np.asarray(self.cloud_uploads, np.int64),
+        }
+        meta: Dict[str, Any] = {"edge_count": self.edge_count}
+        if self._budget_ctl is not None:
+            arrays["budgets"] = np.asarray(self.budgets, np.int64)
+            util = self._budget_ctl.utilities
+            if util is not None:
+                arrays["budget_util"] = util
+        if self.policy == "async":
+            pending_meta: Dict[str, Any] = {}
+            for ev in self.clock.pending():
+                c = ev.payload
+                trees[f"pending/{ev.seq}"] = c.delta
+                arrays[f"pending_sel/{ev.seq}"] = np.asarray(c.selected, np.int64)
+                arrays[f"pending_loss/{ev.seq}"] = np.asarray(c.losses, np.float32)
+                arrays[f"pending_sqnorm/{ev.seq}"] = np.asarray(c.sqnorms, np.float32)
+                pending_meta[str(ev.seq)] = {"edge": c.edge, "weight": c.weight}
+            arrays["edge_in_flight"] = self._edge_in_flight
+            arrays["wall_clock"] = np.asarray(self.wall_clock, np.float64)
+            arrays["round_staleness"] = np.asarray(self.round_staleness, np.float64)
+            meta.update(clock=self.clock.state_dict(), pending=pending_meta,
+                        stragglers_carried=self.stragglers_carried,
+                        updates_dropped=self.updates_dropped)
+        return trees, arrays, meta
+
+    def extra_likes(self, meta):
+        extra = meta["extra"]
+        if extra.get("edge_count") != self.edge_count:
+            raise torch_ckpt.CheckpointMismatchError(
+                f"snapshot was written with edge_count={extra.get('edge_count')}, "
+                f"this engine partitions into {self.edge_count} edges — resume "
+                "with the same FedConfig.edge_count")
+        if self.policy != "async":
+            return {}
+        # In-flight edge deltas share the params structure but are f32.
+        delta_like = {n: torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+                      for n, x in self.params.items()}
+        return {f"pending/{ev['seq']}": delta_like for ev in extra["clock"]["events"]}
+
+    def load_extra_state(self, trees, arrays, meta):
+        extra = meta["extra"]
+        self.cloud_uploads = [int(x) for x in arrays["cloud_uploads"]]
+        if self._budget_ctl is not None:
+            util = arrays.get("budget_util")
+            self._budget_ctl.load_state_dict(
+                {"util": None if util is None else np.asarray(util)})
+            self.budgets = np.asarray(arrays["budgets"], np.int64)
+            self._build_edge_selectors()
+        if self.policy != "async":
+            return
+        payloads = {
+            int(seq): EdgeCohort(
+                edge=int(info["edge"]),
+                selected=np.asarray(arrays[f"pending_sel/{seq}"], np.int64),
+                losses=np.asarray(arrays[f"pending_loss/{seq}"], np.float32),
+                sqnorms=np.asarray(arrays[f"pending_sqnorm/{seq}"], np.float32),
+                weight=float(info["weight"]), delta=trees[f"pending/{seq}"])
+            for seq, info in extra["pending"].items()
+        }
+        self.clock = VirtualClock()
+        self.clock.load_state_dict(extra["clock"], payloads)
+        self._edge_in_flight = np.asarray(arrays["edge_in_flight"], bool).copy()
+        self.wall_clock = [float(x) for x in arrays["wall_clock"]]
+        self.round_staleness = [float(x) for x in arrays["round_staleness"]]
+        self.stragglers_carried = int(extra["stragglers_carried"])
+        self.updates_dropped = int(extra["updates_dropped"])

@@ -7,12 +7,18 @@
 ``topology='hierarchical'`` (or ``fed.topology``) with ``fed.edge_count``
 runs two-tier rounds (``fed.hierarchy``); ``hier_cfg`` holds the partition
 and outer-budget knobs and ``edge_noise`` the per-edge draws.
+``round_policy='async'`` (or ``fed.round_policy``) runs event-driven rounds
+on a virtual clock (``fed.async_engine``) with latencies from ``system`` and
+knobs in ``async_cfg``; ``availability`` masks the clients offline each
+round; ``adaptive_mu=True`` adds the ``'adaptive_mu'`` hook, and ``hooks``
+takes more (``CheckpointHook(dir)`` for mid-run resume).
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig
@@ -35,7 +41,11 @@ def run_federated(
     aggregator: str = "fedavg",
     client_execution: Optional[str] = None,  # None ⇒ fed.client_execution
     verbose: bool = False,
+    availability: Optional[np.ndarray] = None,  # (rounds, K) bool masks
+    adaptive_mu: bool = False,
     round_policy: Optional[str] = None,
+    async_cfg: Optional[Any] = None,         # fed.async_engine.AsyncConfig
+    system: Optional[Any] = None,            # SystemProfile | (K,) multipliers
     topology: Optional[str] = None,
     hooks: Any = (),
     device: str | torch.device = "cuda",
@@ -49,8 +59,9 @@ def run_federated(
         model=model, fed=fed, data=data, selector=selector,
         score_cfg=score_cfg, sel_cfg=sel_cfg, steps_per_round=steps_per_round,
         eval_fn=eval_fn, executor=client_execution, aggregator=aggregator,
-        hooks=list(hooks), verbose=verbose, round_policy=round_policy,
-        topology=topology, device=device,
+        hooks=(["adaptive_mu"] if adaptive_mu else []) + list(hooks), verbose=verbose,
+        availability=availability, round_policy=round_policy, async_cfg=async_cfg,
+        system=system, topology=topology, device=device,
         noise=noise, init_params=init_params,
         hier_cfg=hier_cfg, edge_noise=edge_noise,
     ).build().run()

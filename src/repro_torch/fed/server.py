@@ -4,8 +4,9 @@ Unweighted FedAvg over the selected subset, w_t ← (1/m) Σ_{k∈S_t} w_t^k,
 as one fused reduction per leaf over the batched cohort's leading client
 axis (``fedavg_fused``, which also takes |D_k| weights), or over a list of
 client dicts (``fedavg``). ``params_delta_f32`` and
-``apply_weighted_deltas`` are the hierarchical cloud stage: edge aggregates
-travel as f32 deltas and combine weighted by cohort size.
+``apply_weighted_deltas`` are the hierarchical cloud stage and the
+buffered-async server step: updates travel as f32 deltas and combine
+weighted by cohort size and staleness.
 ``ServerMomentum`` is FedAvgM's server step.
 """
 
@@ -62,12 +63,14 @@ def params_delta_f32(new_params: Params, anchor: Params) -> Params:
 
 
 def apply_weighted_deltas(global_params: Params, deltas: Sequence[Params],
-                          weights: torch.Tensor) -> Params:
-    """w ← w + Σ_i w̄_i Δ_i, weights normalized to sum to 1.
+                          weights: torch.Tensor, server_lr: float = 1.0) -> Params:
+    """w ← w + η_s · Σ_i w̄_i Δ_i, weights normalized to sum to 1.
 
-    The hierarchical cloud stage: ``deltas`` are per-edge aggregates
-    relative to the round's global model, weighted by edge cohort size.
-    Accumulation runs in f32; output leaves keep the param dtype.
+    The buffered-async server step (``fed.async_engine``): each Δ_i is an
+    update relative to the global version its client trained on, weighted
+    by the FedBuff staleness discount. Also the hierarchical cloud stage:
+    per-edge aggregates weighted by edge cohort size. Accumulation runs in
+    f32; output leaves keep the param dtype.
     """
     dev = next(iter(global_params.values())).device
     w = torch.as_tensor(weights).to(device=dev, dtype=torch.float32)
@@ -75,7 +78,7 @@ def apply_weighted_deltas(global_params: Params, deltas: Sequence[Params],
 
     def upd(g: torch.Tensor, ds) -> torch.Tensor:
         s = sum(wi * d.to(torch.float32) for wi, d in zip(w, ds))
-        return (g.to(torch.float32) + s).to(g.dtype)
+        return (g.to(torch.float32) + server_lr * s).to(g.dtype)
 
     return {k: upd(g, [d[k] for d in deltas]) for k, g in global_params.items()}
 

@@ -1092,3 +1092,63 @@ def test_cuda_hybrid_forward_and_gradient_match_the_cpu_port(cuda_device, dtype,
     for name, g in grads.items():
         w = want_grads[name].float()
         assert float((g.cpu().float() - w).abs().max()) <= frac * float(w.abs().max()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compact", [False, True], ids=["f32state", "bf16state"])
+def test_cuda_async_rounds_feed_the_clock_staleness_to_k1_k2(cuda_device, compact):
+    """Flat async rounds under heterosel_pallas on the card: each dispatch
+    equals the plain versions' selection on the same state, the same clock
+    override (rounded to bf16 with a compact state, as the kernel reads it)
+    and the same draws, minus the clients in flight; K1 and K2 each launch
+    once a round with the override on."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import FedConfig, get_config, smoke_variant
+    from repro_torch.core.state import score_inputs
+    from repro_torch.data import make_vision_data
+    from repro_torch.fed import AsyncConfig, FederatedSpec, RoundHook
+    from repro_torch.models import build_model
+
+    fed = FedConfig(num_clients=12, participation=0.5, rounds=3, local_epochs=1,
+                    local_batch=8, lr=0.05, mu=0.1, seed=0, round_policy="async")
+    data = make_vision_data(fed, train_per_class=24, test_per_class=8, noise=0.3)
+    model = build_model(dataclasses.replace(
+        smoke_variant(get_config("resnet18-cifar10")), d_model=8))
+    mult = np.asarray([1.0, 3.0, 0.5, 2.5, 1.0, 4.0] * 2)
+
+    def noise(t, k):   # a function of the round, as resumable runs need
+        return gumbel_noise(torch.Generator(device=cuda_device).manual_seed(100 + t), k)
+
+    seen = []
+
+    class Check(RoundHook):
+        def on_round_start(self, ctx):
+            eng, t = ctx.engine, ctx.round_idx
+            stale = eng.staleness_override()
+            sel, _, _ = tss.fused_score_select_plain(
+                *score_inputs(eng.state), round_idx=t,
+                tau=dynamic_temperature(t, SelectorConfig()), m=eng.m_over,
+                gumbel=eng.round_noise(t), cfg=HeteRoScoreConfig(),
+                staleness_override=stale)
+            self.want = np.zeros(fed.num_clients, bool)
+            self.want[sel.cpu().numpy()] = True
+            self.want &= ~eng._in_flight
+            self.before = dict(tss.LAUNCHES)
+            self.stale = stale.cpu().numpy()
+
+        def on_round_end(self, ctx):
+            grew = {n: tss.LAUNCHES[n] - self.before[n] for n in ("score_stats", "score_select")}
+            assert grew == {"score_stats": 1, "score_select": 1}, grew
+            np.testing.assert_array_equal(ctx.mask, self.want)
+            seen.append((self.stale, ctx.num_stragglers))
+
+    FederatedSpec(model, fed, data, selector="heterosel_pallas", steps_per_round=1,
+                  system=mult, compact_state=compact, device=cuda_device, noise=noise,
+                  async_cfg=AsyncConfig(deadline=1.5, over_select_frac=0.5, jitter=0.1),
+                  hooks=[Check()]).build().run()
+    assert len(seen) == fed.rounds
+    # the override is the clock's, not the round counter
+    assert any(not np.all(s[s < 1e5] == t) for t, (s, _) in enumerate(seen))

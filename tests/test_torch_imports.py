@@ -112,6 +112,12 @@ SLICE7_MODULES = ("repro_torch", "repro_torch.configs.base", "repro_torch.config
                   "repro_torch.models.model", "repro_torch.examples.quickstart",
                   "repro_torch.examples.federated_llm")
 
+# The modules slice 8 added or extended.
+SLICE8_MODULES = ("repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
+                  "repro_torch.core.adaptive", "repro_torch.fed.clock",
+                  "repro_torch.fed.availability", "repro_torch.fed.async_engine",
+                  "repro_torch.fed.engine", "repro_torch.fed.hierarchy", "repro_torch.fed")
+
 
 # One fresh interpreter loads torch and numpy, then forks a child for each
 # module; the child imports that module alone and reports what of JAX and the
@@ -148,7 +154,7 @@ print(json.dumps(found))
 def loaded_by_import():
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run([sys.executable, "-c", _FORK_EACH, *SLICE6_MODULES,
-                           *SLICE7_MODULES],
+                           *SLICE7_MODULES, *SLICE8_MODULES],
                           capture_output=True, text=True, timeout=240, env=env)
     assert proc.returncode == 0, proc.stderr
     return json.loads(proc.stdout.splitlines()[-1])
@@ -169,6 +175,15 @@ def test_slice6_module_loads_no_jax_and_no_reference(module, loaded_by_import):
 def test_slice7_module_loads_no_jax_and_no_reference(module, loaded_by_import):
     """As for slice 6: imported alone in a fresh process, the module pulls in
     neither JAX nor the reference package."""
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    assert path.exists() or (path.parent / path.stem / "__init__.py").exists()
+    assert loaded_by_import[module] == [], loaded_by_import[module]
+
+
+@pytest.mark.parametrize("module", SLICE8_MODULES)
+def test_slice8_module_loads_no_jax_and_no_reference(module, loaded_by_import):
+    """As for slices 6 and 7: imported alone in a fresh process, the module
+    pulls in neither JAX nor the reference package."""
     path = ROOT / "src" / (module.replace(".", "/") + ".py")
     assert path.exists() or (path.parent / path.stem / "__init__.py").exists()
     assert loaded_by_import[module] == [], loaded_by_import[module]

@@ -189,15 +189,23 @@ def test_fedavg_fused_matches_reference(weighted):
 
 
 def test_engine_refuses_what_is_not_ported():
+    """The 'filtered' selector and the telemetry hook (slice 10) raise;
+    async rounds and 'fedbuff', refused until slice 8, now build."""
+    from repro_torch.fed import AsyncFederatedEngine, BufferedAggregator
+
     _, tm = models()
     fed = FedConfig(num_clients=4, rounds=1)
     data = make_vision_data(fed, train_per_class=4, test_per_class=2, image_size=8)
     hier = dataclasses.replace(fed, topology="hierarchical", edge_count=2)
-    for f in (fed, hier):  # async rounds, flat or hierarchical
-        with pytest.raises(NotImplementedError, match="not ported"):
-            FederatedSpec(tm, f, data, device="cpu", round_policy="async").build()
-    with pytest.raises(ValueError, match="not ported"):
-        FederatedSpec(tm, fed, data, device="cpu", aggregator="fedbuff").build()
+    for f in (fed, hier):
+        with pytest.raises(ValueError, match="not yet ported"):
+            FederatedSpec(tm, f, data, device="cpu", selector="filtered").build()
+    with pytest.raises(ValueError, match="unknown hook"):
+        FederatedSpec(tm, fed, data, device="cpu", hooks=["telemetry"]).build()
+    assert isinstance(FederatedSpec(tm, fed, data, device="cpu",
+                                    round_policy="async").build(), AsyncFederatedEngine)
+    eng = FederatedSpec(tm, fed, data, device="cpu", aggregator="fedbuff").build()
+    assert isinstance(eng.aggregator, BufferedAggregator)
 
 
 def test_sequential_and_batched_executors_agree(capsys):

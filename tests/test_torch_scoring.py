@@ -173,7 +173,8 @@ def test_selector_masks_match_reference(name, k, m):
 
 def test_make_selector_lists_what_is_ported():
     with pytest.raises(ValueError, match="heterosel_pallas"):
-        selection.make_selector("adaptive", selection.SelectorConfig())
+        selection.make_selector("filtered", selection.SelectorConfig())
+    assert "adaptive" in selection.SELECTORS
 
 
 def test_gumbel_noise_is_seeded():
