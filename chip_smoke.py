@@ -136,7 +136,26 @@ Phases, in order; any failure raises and the script exits nonzero:
      noise generator's state among it), and phase 4's hierarchical
      federation under async rounds with K4 and with the 'adaptive' edge
      budgets (phase_async).
- 14. A JSON line of per-kernel numbers, then the result line.
+ 14. Slice 9, the serving tier, in a child process as phase 13. 14a: phase
+     5's federation (qwen2-0.5b at every width, 3 rounds) with a
+     PublishHook serving SERVE_TRAFFIC on 8 slots of 128 positions: two
+     runs without the hook agree bitwise (else both again under
+     deterministic algorithms), the run with the hook equals them bitwise
+     and launches K1 and K2 once a round and K5 on every forward (training,
+     eval and the served version's eval); round t's traffic is served by
+     version t − 1, every request's tokens equal ``generate``'s for it
+     alone in a tick of the server's width, and a tick's logits are within
+     TICK_ULPS of batch-1 steps'; the serving summary, peak memory and one
+     tick's profile. 14b: teacher-forced decode against the forward on
+     qwen2-0.5b (24 layers, K5), mamba2-370m (48 layers, K7), zamba2-7b
+     (12 layers, K5 and K7) and the phase 12 VLM cut (cross-attention
+     warmed, gates 0.5), within the reference tests' bounds; a server wave
+     of 16 requests on 8 slots each on mamba2-370m and on phase 7's kimi-k2
+     share (K6 every tick, each of its launches held against the plain
+     version at phase 2's tolerance and the fullest one timed), tokens
+     equal to ``generate``'s, a tick's logits within TICK_ULPS of batch-1
+     steps'.
+ 15. A JSON line of per-kernel numbers, then the result line.
 
 It needs one card, imports nothing of JAX or of the reference package, and
 exits nonzero without printing a result when torch sees no CUDA device.
@@ -895,6 +914,20 @@ def grouped_mm_yardstick(xs, rhs, sizes, want):
     return fn, gap
 
 
+def check_gmm(where: str, got, want) -> float:
+    """K6's output against its plain version's: the rows that are 0 the
+    same rows, bf16 within one bf16 ulp plus 1e-5 of the largest output, f32
+    to 1e-5 relative plus 1e-5 of the largest. Returns the largest error."""
+    import torch
+
+    if not torch.equal((got == 0).all(1), (want == 0).all(1)):
+        raise AssertionError(f"{where}: the rows that are 0 differ")
+    top = float(want.float().abs().max())
+    if got.dtype == torch.bfloat16:
+        return check_within_bf16_ulp(where, got, want, atol=1e-5 * top)
+    return check_close(where, got, want, atol=1e-5 * top)
+
+
 def phase_gmm(dev):
     """Phase 2, K6: every case against the plain version, then the timings.
     Returns K6's largest error and the rows."""
@@ -910,15 +943,7 @@ def phase_gmm(dev):
             xs, rhs, sizes = gmm_inputs(case, dtype, dev)
             got = tgmm.grouped_matmul_fwd(xs, rhs, sizes)
             want = tgmm.gmm_plain_clients(xs, rhs, sizes)
-            where = f"K6 {case[0]} {dtype}"
-            if not torch.equal((got == 0).all(1), (want == 0).all(1)):
-                raise AssertionError(f"{where}: the rows that are 0 differ")
-            top = float(want.float().abs().max())
-            if dtype == torch.bfloat16:
-                e = check_within_bf16_ulp(where, got, want, atol=1e-5 * top)
-            else:
-                e = check_close(where, got, want, atol=1e-5 * top)
-            err = max(err, e)
+            err = max(err, check_gmm(f"K6 {case[0]} {dtype}", got, want))
             ncases += 1
     torch.cuda.synchronize()
     print(f"phase 2: {ncases} K6 cases, kernel == plain (zero rows equal; bf16 within 1 ulp "
@@ -927,33 +952,41 @@ def phase_gmm(dev):
 
     timings = []
     for case in (c for c in GMM_CASES if c[0] in GMM_TIMED):
-        xs, rhs, sizes = gmm_inputs(case, torch.bfloat16, dev, seed=1)
-        kern = lambda: tgmm.grouped_matmul_fwd(xs, rhs, sizes)
-        plain = lambda: tgmm.gmm_plain_clients(xs, rhs, sizes)
-        s = sizes.cpu().numpy()
-        row = {"case": case[0], "kernel": "gmm_bf16_kernel", "C": case[1], "R": case[2],
-               "K": case[3], "N": case[4],
-               "G": case[5], "rhs": case[6], "rows_in_groups": int(s.sum()),
-               "max_group": int(s.max())}
-        row["k6_ms"] = time_ms(kern, 20)
-        row["k6_plain_ms"] = time_ms(plain, 3)
-        row["k6_device_ms"] = device_ms(kern, "gmm_bf16_kernel")
-        row["k6_plain_device_ms"] = device_ms(plain, None, iters=3)
-        lib, note = grouped_mm_yardstick(xs, rhs, sizes, kern())
-        if lib is None:
-            row.update(k6_library_ms=None, k6_library_note=note)
-        else:
-            row.update(k6_library_ms=time_ms(lib, 20),
-                       k6_library_device_ms=device_ms(lib, None),
-                       library_max_abs_diff=note)
-        nbytes, flops = gmm_work(case, sizes, 2)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-        row.update(bytes=nbytes, flops=flops, k6_bound_ms=max(t_bytes, t_ops),
-                   k6_bound_by="bytes" if t_bytes >= t_ops else "operations")
-        timings.append(row)
-        print("timing " + json.dumps(row), flush=True)
+        timings.append(gmm_timing(case, *gmm_inputs(case, torch.bfloat16, dev, seed=1)))
     return err, timings
+
+
+def gmm_timing(case, xs, rhs, sizes) -> dict:
+    """A bf16 K6 case timed: the kernel, its plain version and the library
+    yardstick on ``xs``, ``rhs``, ``sizes``, beside its bound. Printed and
+    returned as a row of the kernels line's ``shapes``."""
+    from repro_torch.kernels import moe_gmm as tgmm
+
+    kern = lambda: tgmm.grouped_matmul_fwd(xs, rhs, sizes)
+    plain = lambda: tgmm.gmm_plain_clients(xs, rhs, sizes)
+    s = sizes.cpu().numpy()
+    row = {"case": case[0], "kernel": "gmm_bf16_kernel", "C": case[1], "R": case[2],
+           "K": case[3], "N": case[4],
+           "G": case[5], "rhs": case[6], "rows_in_groups": int(s.sum()),
+           "max_group": int(s.max())}
+    row["k6_ms"] = time_ms(kern, 20)
+    row["k6_plain_ms"] = time_ms(plain, 3)
+    row["k6_device_ms"] = device_ms(kern, "gmm_bf16_kernel")
+    row["k6_plain_device_ms"] = device_ms(plain, None, iters=3)
+    lib, note = grouped_mm_yardstick(xs, rhs, sizes, kern())
+    if lib is None:
+        row.update(k6_library_ms=None, k6_library_note=note)
+    else:
+        row.update(k6_library_ms=time_ms(lib, 20),
+                   k6_library_device_ms=device_ms(lib, None),
+                   library_max_abs_diff=note)
+    nbytes, flops = gmm_work(case, sizes, 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    row.update(bytes=nbytes, flops=flops, k6_bound_ms=max(t_bytes, t_ops),
+               k6_bound_by="bytes" if t_bytes >= t_ops else "operations")
+    print("timing " + json.dumps(row), flush=True)
+    return row
 
 
 def launch_counts() -> dict:
@@ -2354,6 +2387,445 @@ def phase_async_child(out: str) -> int:
     return 0
 
 
+# Phase 14: the serving tier. 14a serves SERVE_TRAFFIC on the version of the
+# previous round while phase 5's federation trains; 14b holds teacher-forced
+# decode against the forward at full width and runs a server wave each on
+# mamba2-370m and on the kimi-k2 share.
+SERVE_TRAFFIC = dict(rate=8.0, prompt_len=(16, 64), output_len=(16, 64), seed=1)
+SERVE_WIDTH = 8
+SERVE_MAX_LEN = 128
+DECODE_SEQ = 16          # teacher-forced positions
+DECODE_BATCH = 2
+WAVE_TRAFFIC = dict(rate=8.0, prompt_len=(2, 8), output_len=(2, 8), seed=2)
+WAVE_MAX_LEN = 16
+# (atol, rtol) of tests/test_models_smoke.py's prefill/decode checks: the
+# attention families', and the SSM's (whose chunked scan and recurrence
+# round apart); the hybrid holds both, so it takes the SSM's.
+ATTN_BOUNDS = (0.15, 0.05)
+SSM_BOUNDS = (0.25, 0.08)
+# A tick's logits against batch-1 steps on the same caches, in bf16 ulps of
+# the largest logit: 2 for the attention families, as the card test of the
+# smoke qwen2 holds them (0 measured on qwen2-0.5b and the kimi-k2 share on
+# an H100); 8 for the SSM, whose f32 readout h·c rounds apart at the tick's
+# row count (0.070 on mamba2-370m, about 4.5 ulps, on an H100).
+TICK_ULPS = {"ssm": 8}
+TICK_ULPS_DEFAULT = 2
+
+
+def served_mismatches(model, registry, records, traffic) -> list:
+    """The rids whose served tokens differ from ``generate`` on the same
+    version, prompt and Gumbel rows, each request alone (batch 1) in a tick
+    of SERVE_WIDTH slots, the row count the server's GEMMs run at (the
+    traffic stream is a function of its seed, so ``take`` rebuilds each
+    request)."""
+    from repro_torch.serve import TrafficSimulator, generate
+
+    reqs = TrafficSimulator(traffic, vocab=model.cfg.vocab_size).take(
+        max(r.rid for r in records) + 1)
+    bad = []
+    for rec in records:
+        req = reqs[rec.rid]
+        off = generate(model, registry.get(rec.version).params, req.prompt[None],
+                       req.output_len, req.draws, slots=SERVE_WIDTH)[0]
+        if tuple(off.tolist()) != rec.tokens:
+            bad.append(rec.rid)
+    return bad
+
+
+def tick_vs_batch1(model, params, dev, width: int, max_len: int, seed: int = 0) -> dict:
+    """A ``width``-slot tick (``torch.func.vmap`` of ``decode_step`` over
+    slot caches, as ``ModelServer`` runs it) against a batch-1
+    ``decode_step`` on each slot's cache: how many slots get the same logits
+    bits, and the largest gap, which must stay within the family's TICK_ULPS
+    bf16 ulps of the largest logit. Each slot's cache is first filled by
+    batch-1 steps over its own random prompt of 1..width tokens, so the slots
+    sit at different positions."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    vocab = model.cfg.vocab_size
+    caches, toks, poss = [], [], []
+    with torch.no_grad():
+        for i in range(width):
+            n = 1 + i % width
+            prompt = rng.integers(0, vocab, size=(1, n + 1)).astype(np.int32)
+            cache = model.init_cache(1, max_len, device=dev)
+            p = torch.from_numpy(prompt).to(dev)
+            for pos in range(n):
+                _, cache = model.decode_step(params, cache, p[:, pos:pos + 1],
+                                             torch.tensor(pos, device=dev))
+            caches.append(cache)
+            toks.append(prompt[0, n])
+            poss.append(n)
+        stacked = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+        tick = torch.func.vmap(model.decode_step, in_dims=(None, 0, 0, 0))
+        logits_w, _ = tick(params, stacked,
+                           torch.tensor(np.array(toks, np.int32), device=dev).reshape(-1, 1, 1),
+                           torch.tensor(poss, device=dev))
+        gaps, tops, same = [], [], 0
+        for i in range(width):
+            one, _ = model.decode_step(params, caches[i],
+                                       torch.tensor([[toks[i]]], dtype=torch.int32, device=dev),
+                                       torch.tensor(poss[i], device=dev))
+            gaps.append(float((logits_w[i][..., :vocab].float()
+                               - one[..., :vocab].float()).abs().max()))
+            tops.append(float(one[..., :vocab].float().abs().max()))
+            same += torch.equal(logits_w[i].contiguous().view(torch.uint8),
+                                one.contiguous().view(torch.uint8))
+    ulps = max(g / float(bf16_ulp(torch.tensor(t))) for g, t in zip(gaps, tops))
+    bound = TICK_ULPS.get(model.cfg.family, TICK_ULPS_DEFAULT)
+    out = {"slots_bitwise": same, "slots": width, "max_abs_gap": max(gaps),
+           "max_gap_ulps_of_top_logit": ulps, "bound_ulps": bound}
+    if not ulps <= bound:
+        raise AssertionError(f"a {width}-slot tick's logits are {ulps:.2f} bf16 ulps of the "
+                             f"top logit from batch-1 steps', past {bound}: {out}")
+    return out
+
+
+def tick_profile(model, params, dev, width: int, max_len: int) -> dict:
+    """A ``width``-slot decode tick of ``ModelServer`` (every slot active)
+    under torch.profiler: host wall, device busy, idle share, launches; and
+    the tick's and a batch-1 step's CUDA-event time over 20 calls."""
+    import torch
+    from repro_torch.serve import ModelServer, VersionRegistry
+
+    reg = VersionRegistry()
+    reg.publish(params, round_idx=-1)
+    srv = ModelServer(model, reg, batch_width=width, max_len=max_len, device=dev)
+    toks = np.arange(width, dtype=np.int32) % model.cfg.vocab_size
+    poss = np.arange(width, dtype=np.int64)
+    srv.tick(params, toks, poss)
+    prof = profile_phase(lambda: srv.tick(params, toks, poss))
+    cache = model.init_cache(1, max_len, device=dev)
+    one_tok = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    pos = torch.tensor(0, device=dev)
+
+    def one():
+        with torch.no_grad():
+            model.decode_step(params, cache, one_tok, pos)
+
+    prof["tick_ms"] = time_ms(lambda: srv.tick(params, toks, poss), 20)
+    prof["batch1_step_ms"] = time_ms(one, 20)
+    return prof
+
+
+def phase_serving_train(dev) -> tuple:
+    """14a: phase 5's federation (qwen2-0.5b at every width, K = 8, m = 4,
+    3 rounds of 3 local steps, heterosel_pallas) with a PublishHook serving
+    SERVE_TRAFFIC on SERVE_WIDTH slots. Two runs without the hook must agree
+    bitwise (else both again under deterministic algorithms); the run with
+    the hook must equal them bitwise, launch K1 and K2 once a round and K5
+    on every forward (training, eval, and the served version's eval), serve
+    each round's traffic on the previous round's version, and give every
+    request the tokens ``generate`` gives at batch 1."""
+    import torch
+    from repro_torch.configs import FedConfig, get_config
+    from repro_torch.data import make_lm_data
+    from repro_torch.fed import FederatedSpec
+    from repro_torch.models import build_model
+    from repro_torch.serve import PublishHook, TrafficConfig
+
+    cfg = get_config("qwen2-0.5b")
+    fed = FedConfig(num_clients=8, participation=0.5, rounds=LM_ROUNDS, local_epochs=1,
+                    local_batch=8, lr=0.05, mu=0.1, seed=0)
+    data = make_lm_data(fed, vocab=cfg.vocab_size, seq_len=32)
+    model = build_model(cfg)
+    traffic = TrafficConfig(**SERVE_TRAFFIC)
+
+    def run(hooks=()):
+        return FederatedSpec(model, fed, data, selector="heterosel_pallas",
+                             steps_per_round=LM_STEPS, executor="batched", device=dev,
+                             hooks=list(hooks)).build().run()
+
+    t0 = time.perf_counter()
+    base, again = run(), run()
+    diff = same_run(base, again)
+    forced = bool(diff)
+    if forced:
+        print(f"phase 14a: two runs without the hook differ on {diff[:6]}; both again "
+              "under torch.use_deterministic_algorithms(True)", flush=True)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        base, again = run(), run()
+        diff = same_run(base, again)
+        if diff:
+            raise AssertionError(f"14a: deterministic runs differ on {diff[:6]}")
+    print(f"phase 14a: two runs without the hook agree bitwise"
+          f"{' under deterministic algorithms' if forced else ''} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    hook = PublishHook(traffic=traffic, batch_width=SERVE_WIDTH, max_len=SERVE_MAX_LEN)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    served = run([hook])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_round = {n: 0 for n in launches}
+    per_round.update(score_stats=1, score_select=1,
+                     flash_attention=cfg.num_layers * (LM_STEPS + 1 + 1))
+    want = {n: c * fed.rounds for n, c in per_round.items()}
+    if launches != want:
+        raise AssertionError(f"14a launches {launches}, want {want}")
+    diff = same_run(base, served)
+    if diff:
+        raise AssertionError(f"14a: training with the hook differs on {diff[:6]}")
+    s = served.serving
+    if s["versions_published"] != fed.rounds + 1 or s["mean_lag_rounds"] < 1 \
+            or s["requests"] < 1:
+        raise AssertionError(f"14a serving summary {s}")
+    # Round t's served version is round t - 1's params: its eval is that
+    # round's metric (the same forward on the same batch).
+    if not np.allclose(served.served_metric[1:, 2], served.accuracy[:-1], rtol=1e-6, atol=0):
+        raise AssertionError(f"14a served metric {served.served_metric} vs accuracy "
+                             f"{served.accuracy}")
+    records = hook.metrics.records
+    t1 = time.perf_counter()
+    bad = served_mismatches(model, hook.registry, records, traffic)
+    check_s = time.perf_counter() - t1
+    bitwise = tick_vs_batch1(model, hook.registry.latest().params, dev, SERVE_WIDTH,
+                             SERVE_MAX_LEN)
+    print(f"phase 14a: qwen2-0.5b, {cfg.num_layers} layers, {fed.rounds} rounds with the "
+          f"hook, wall {wall:.2f} s; {len(records)} requests, "
+          f"{s['total_tokens']} tokens; served == generate (batch 1 in a "
+          f"{SERVE_WIDTH}-slot tick) for {len(records) - len(bad)} of {len(records)} "
+          f"({check_s:.1f} s); a tick's logits vs batch-1 steps' {json.dumps(bitwise)}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"14a: served tokens differ from generate for rids {bad}")
+    print("  serving " + json.dumps({k: s[k] for k in (
+        "requests", "total_tokens", "decode_tok_per_s", "total_ms_p95", "total_ms_mean",
+        "queue_ms_mean", "prefill_ms_mean", "decode_ms_mean", "time_to_serve_v1_ms",
+        "time_to_serve_v1_ms_max", "mean_lag_rounds", "max_lag_rounds",
+        "versions_published")}), flush=True)
+    print(f"  served_metric {served.served_metric.tolist()}", flush=True)
+    print(f"  accuracy {served.accuracy.tolist()}  train_loss {served.train_loss.tolist()}",
+          flush=True)
+    print(f"  max_memory_allocated {peak} bytes (training, {len(hook.registry)} "
+          f"versions held, {SERVE_WIDTH} slots of {SERVE_MAX_LEN})", flush=True)
+    print(f"  launches {json.dumps(launches)}", flush=True)
+    prof = tick_profile(model, hook.registry.latest().params, dev, SERVE_WIDTH,
+                        SERVE_MAX_LEN)
+    print(f"  profile decode tick ({SERVE_WIDTH} slots): {json.dumps(prof)}", flush=True)
+    if forced:
+        torch.use_deterministic_algorithms(False)
+    return launches, {"serving": s, "forced_deterministic": forced,
+                      "tick_vs_batch1": bitwise,
+                      "tick_profile": prof, "peak": peak}
+
+
+def decode_vs_forward(dev, label: str, cfg, bounds, gates=None, seq: int = DECODE_SEQ):
+    """14b: the prompt teacher-forced through ``decode_step`` one position at
+    a time against the forward's logits over it (through the model's
+    kernels), within ``bounds`` = (atol, rtol) as ``np.allclose`` reads
+    them. Returns the forward's launch counts, and the gap (also in bf16
+    ulps of the largest logit) with the decode's time per position."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models import vlm as vlm_mod
+
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    if gates is not None:
+        for name in ("cross_layers.gate_attn", "cross_layers.gate_mlp"):
+            params[name].fill_(gates)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(DECODE_BATCH, seq))
+                            .astype(np.int32)).to(dev)
+    batch = {"tokens": toks}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+            (DECODE_BATCH, cfg.vision_tokens, cfg.d_model)).astype(np.float32)).to(dev)
+    vocab = cfg.vocab_size
+    with torch.no_grad():
+        reset_launch_counts()
+        full = model.forward(params, batch)[..., :vocab].float()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        cache = model.init_cache(DECODE_BATCH, seq, device=dev)
+        if cfg.family == "vlm":
+            cache = vlm_mod.warm_cross_cache(cfg, params, cache, batch["vision_embeds"])
+        outs = []
+        t1 = time.perf_counter()
+        for pos in range(seq):
+            logits, cache = model.decode_step(params, cache, toks[:, pos:pos + 1],
+                                              torch.tensor(pos, device=dev))
+            outs.append(logits[:, 0, :vocab].float())
+        dec = torch.stack(outs, 1)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t1
+    atol, rtol = bounds
+    gap = (dec - full).abs()
+    excess = float((gap - (atol + rtol * full.abs())).max())
+    top = float(bf16_ulp(full.abs().max()))
+    out = {"max_abs_gap": float(gap.max()), "ulps_of_top_logit": float(gap.max()) / top,
+           "top_logit": float(full.abs().max()), "atol": atol, "rtol": rtol,
+           "forward_launches": {n: c for n, c in launches.items() if c},
+           "decode_ms_per_position": decode_s * 1e3 / seq}
+    print(f"phase 14b: {label} ({cfg.num_layers} layers), {seq} positions x batch "
+          f"{DECODE_BATCH}: decode vs forward {json.dumps(out)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not excess <= 0:
+        raise AssertionError(f"14b {label}: decode exceeds the forward's logits by "
+                             f"{excess:.3e} past atol {atol} + rtol {rtol}")
+    del model, params, cache
+    return launches, out
+
+
+def gmm_decode_check(launched: list) -> dict:
+    """K6 as the MoE decode ticks launched it: each launch's output (the
+    slots folded by K6's vmap rule) against ``gmm_plain_clients`` on the same
+    inputs at phase 2's tolerance (``check_gmm``), then the launch with the
+    most rows in groups timed as phase 2 times its cases."""
+    from repro_torch.kernels import moe_gmm as tgmm
+
+    err = 0.0
+    for i, (xs, rhs, sizes, out) in enumerate(launched):
+        err = max(err, check_gmm(f"K6 decode launch {i}", out,
+                                 tgmm.gmm_plain_clients(xs, rhs, sizes)))
+    xs, rhs, sizes, _ = max(launched, key=lambda item: int(item[2].sum()))
+    c = sizes.shape[0] if sizes.dim() == 2 else 1
+    case = ("decode", c, xs.shape[0] // c, xs.shape[1], rhs.shape[-1], rhs.shape[-3],
+            "shared" if rhs.dim() == 3 else "client", None)
+    return {"launches_checked": len(launched), "max_abs_err": err,
+            "timing": gmm_timing(case, xs, rhs, sizes.reshape(c, -1))}
+
+
+def server_wave(dev, label: str, cfg, kernel: str | None = None) -> tuple:
+    """14b: one ModelServer wave of 2 × SERVE_WIDTH WAVE_TRAFFIC requests on
+    ``cfg`` (so slots are reused), launches counted around the wave; every
+    request's tokens must equal ``generate``'s at batch 1. ``kernel`` must
+    launch on every tick (its launches per tick are reported); K6's launches
+    are each held against its plain version (``gmm_decode_check``)."""
+    import torch
+    from repro_torch.kernels import moe_gmm as tgmm
+    from repro_torch.models import build_model
+    from repro_torch.serve import ModelServer, TrafficConfig, TrafficSimulator, VersionRegistry
+
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    reg = VersionRegistry()
+    reg.publish(params, round_idx=-1)
+    srv = ModelServer(model, reg, batch_width=SERVE_WIDTH, max_len=WAVE_MAX_LEN, device=dev)
+    traffic = TrafficConfig(**WAVE_TRAFFIC, max_requests=2 * SERVE_WIDTH)
+    for req in TrafficSimulator(traffic, vocab=cfg.vocab_size).take(2 * SERVE_WIDTH):
+        srv.submit(req, arrival_round=0)
+    ticks = [0]
+    tick = srv.tick
+
+    def counted(*args):
+        ticks[0] += 1
+        return tick(*args)
+
+    srv.tick = counted
+    launched, gmm_cuda = [], tgmm.gmm_cuda
+
+    def recorded(xs, rhs, group_sizes, **kw):   # K6's launches, inputs and output kept
+        got = gmm_cuda(xs, rhs, group_sizes, **kw)
+        launched.append((xs, rhs, group_sizes, got))
+        return got
+
+    tgmm.gmm_cuda = recorded
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    try:
+        records = srv.pump()
+        torch.cuda.synchronize()
+    finally:
+        tgmm.gmm_cuda = gmm_cuda
+    wave_s = time.perf_counter() - t1
+    launches = launch_counts()
+    bad = served_mismatches(model, reg, records, traffic)
+    s = srv.metrics.summary()
+    out = {"requests": len(records), "ticks": ticks[0], "wave_s": wave_s,
+           "decode_tok_per_s": s["decode_tok_per_s"], "total_ms_p95": s["total_ms_p95"],
+           "launches": {n: c for n, c in launches.items() if c}}
+    if kernel is not None:
+        out[f"{kernel}_per_tick"] = launches[kernel] / ticks[0]
+    if launched:
+        out["k6_decode"] = gmm_decode_check(launched)
+    del launched
+    out["tick_vs_batch1"] = tick_vs_batch1(model, params, dev, SERVE_WIDTH, WAVE_MAX_LEN)
+    print(f"phase 14b: {label} server wave: {json.dumps(out)}; served == generate for "
+          f"{len(records) - len(bad)} of {len(records)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    if bad or len(records) != 2 * SERVE_WIDTH:
+        raise AssertionError(f"14b {label}: served tokens differ from generate for {bad}")
+    if kernel is not None and launches[kernel] == 0:
+        raise AssertionError(f"14b {label}: {kernel} never launched in the wave")
+    return launches, out
+
+
+def phase_serving(dev) -> dict:
+    """Phase 14 (slice 9): 14a, then 14b's four decode-vs-forward checks and
+    two server waves. Returns the launch counts by path and the numbers."""
+    from repro_torch.configs import expert_share, get_config
+
+    t_phase = time.perf_counter()
+    paths, out = {}, {}
+    paths["serving"], out["14a"] = phase_serving_train(dev)
+    release(dev)
+    gaps, forwards = {}, []
+    for label, cfg, bounds, kw in (
+            ("qwen2-0.5b", get_config("qwen2-0.5b"), ATTN_BOUNDS, {}),
+            ("mamba2-370m", get_config("mamba2-370m"), SSM_BOUNDS, {}),
+            ("zamba2-7b", dataclasses.replace(get_config("zamba2-7b"),
+                                              num_layers=HYBRID_LAYERS), SSM_BOUNDS, {}),
+            ("llama-3.2-vision-90b", dataclasses.replace(
+                get_config("llama-3.2-vision-90b"), num_layers=VLM_LAYERS,
+                vocab_size=VLM_VOCAB), ATTN_BOUNDS, {"gates": VLM_GATE})):
+        counts, gaps[label] = decode_vs_forward(dev, label, cfg, bounds, **kw)
+        forwards.append(counts)
+        release(dev)
+    out["14b"] = gaps
+    paths["decode_vs_forward"] = {n: sum(c[n] for c in forwards) for n in forwards[0]}
+    paths["decode_ssm"], out["wave_ssm"] = server_wave(dev, "mamba2-370m",
+                                                       get_config("mamba2-370m"))
+    release(dev)
+    paths["decode_moe"], out["wave_moe"] = server_wave(
+        dev, "kimi-k2 share", expert_share(get_config("kimi-k2-1t-a32b"), **MOE_SHARE),
+        kernel="grouped_matmul")
+    release(dev)
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"paths": paths, "numbers": out}
+
+
+def run_phase_serving() -> dict:
+    """Phase 14 in a child process of this script (as phase 13), so that it
+    starts with the card's memory free; with the cuBLAS workspace setting
+    that deterministic algorithms require, should 14a need them. Returns
+    the child's launch counts by path and its numbers."""
+    import tempfile
+
+    fd, out = tempfile.mkstemp(prefix="chip_smoke_phase14_", suffix=".json")
+    os.close(fd)
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phase-14",
+                               out], env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+        if proc.returncode != 0:
+            raise RuntimeError(f"phase 14's process exited with {proc.returncode}")
+        with open(out) as f:
+            got = json.load(f)
+    finally:
+        os.unlink(out)
+    print(f"phase 14: its process took {time.perf_counter() - t0:.1f} s", flush=True)
+    return got
+
+
+def phase_serving_child(out: str) -> int:
+    """The child of ``run_phase_serving``: phase 14, its result into ``out``."""
+    from repro_torch.device import resolve_device
+
+    got = phase_serving(resolve_device("cuda"))
+    with open(out, "w") as f:
+        json.dump(got, f)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2362,6 +2834,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--phase-13"]:
         return phase_async_child(sys.argv[2])
+    if sys.argv[1:2] == ["--phase-14"]:
+        return phase_serving_child(sys.argv[2])
     from repro_torch.configs import expert_share, get_config
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
@@ -2468,6 +2942,9 @@ def main() -> int:
     paths["async"], paths["async_hierarchical"] = run_phase_async(err)
     release(dev)
     lap(13)
+    serving = run_phase_serving()
+    paths.update(serving["paths"])
+    lap(14)
 
     def launches(name):
         by_path = {p: counts[name] for p, counts in paths.items()}
@@ -2518,17 +2995,20 @@ def main() -> int:
         "shapes": flash_timings,
     })
     main_row = next(r for r in gmm_timings if r["case"] == "path gate")
+    k6_decode = serving["numbers"]["wave_moe"]["k6_decode"]
     kernels.append({
         "name": "grouped_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm.py:32",
         **launches("grouped_matmul"),
-        "max_abs_err": gmm_err,
+        "max_abs_err": max(gmm_err, k6_decode["max_abs_err"]),
         "moe_eval_logit_gap": moe_gap,
         "ms": main_row["k6_ms"], "plain_ms": main_row["k6_plain_ms"],
         "bound_ms": main_row["k6_bound_ms"], "bound_by": main_row["k6_bound_by"],
         "library_ms": main_row["k6_library_ms"],   # torch._grouped_mm, where it exists
-        "shapes": gmm_timings,
+        "serving_launches_per_tick": serving["numbers"]["wave_moe"]["grouped_matmul_per_tick"],
+        "serving_launches_checked": k6_decode["launches_checked"],
+        "shapes": gmm_timings + [k6_decode["timing"]],
     })
     main_row = next(r for r in ssd_timings if r["case"] == "path")
     kernels.append({

@@ -99,6 +99,13 @@ class FLResult:
     execute_ms: Optional[np.ndarray] = None
     aggregate_ms: Optional[np.ndarray] = None
     eval_ms: Optional[np.ndarray] = None
+    # The serving tier (serve.PublishHook): a summary dict of the request
+    # telemetry (latency percentiles, decode throughput, served-version lag,
+    # publish cost), and the accuracy-under-traffic series, the per-round
+    # eval of the version being *served*, which trails the params being
+    # aggregated. ``served_metric`` rows are (round, version, metric).
+    serving: Optional[Dict[str, Any]] = None
+    served_metric: Optional[np.ndarray] = None
 
     @property
     def peak_acc(self) -> float:
@@ -1032,6 +1039,8 @@ class FederatedEngine:
             execute_ms=np.asarray(self.metrics.execute_ms),
             aggregate_ms=np.asarray(self.metrics.aggregate_ms),
             eval_ms=np.asarray(self.metrics.eval_ms),
+            serving=extras.get("serving"),
+            served_metric=extras.get("served_metric"),
         )
 
     # -- checkpoint / resume ----------------------------------------------

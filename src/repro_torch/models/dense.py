@@ -10,11 +10,17 @@ axis as ``dense.init_params`` stacks it, so conversion is a copy.
 plain function over the dict, and the reference's ``lax.scan`` over layers
 is a Python loop over the stacked axis. Every activation is kept: the
 reference's per-layer ``jax.checkpoint`` (remat) is not ported.
+
+Decode (``cache_len``, ``init_cache``, ``decode_step``) runs one token
+through every layer against a per-layer KV cache (``attention``'s decode
+functions, plain torch as the reference's): a ring buffer of
+``sliding_window`` positions when the config sets one. ``decode_step`` is
+pure, so the serving tier vmaps it over its slots.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
@@ -23,8 +29,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (DEFAULT_DTYPE, Params, cross_entropy,
                                        embed_tokens, gated_mlp, init_gated_mlp,
-                                       init_lm_params, meta_param, rms_norm,
-                                       split_layers, unembed)
+                                       init_lm_params, meta_param, nest, rms_norm,
+                                       rope_tables, split_layers, unembed)
 
 
 def meta_embed(module: nn.Module, cfg: ModelConfig) -> None:
@@ -122,3 +128,75 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Ten
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     logits = forward(cfg, params, batch["tokens"])
     return cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+
+def cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """Effective cache length: the sliding window bounds it when set."""
+    return min(cfg.sliding_window, max_len) if cfg.sliding_window else max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Params:
+    return attn.init_kv_cache(cfg.num_layers, batch, cache_len(cfg, max_len),
+                              cfg.num_kv_heads, cfg.resolved_head_dim, device=device)
+
+
+def embed_one(params: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """The token embedding of (B, S) ids in ``dtype`` (the caller's
+    ``DEFAULT_DTYPE``)."""
+    return embed_tokens({"tok_embed": params["embed.tok_embed"]}, tokens).to(dtype)
+
+
+def logits_out(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and unembedding of a decode step: (B, 1, d) → (B, 1, V_padded)."""
+    return unembed(nest(params, "embed."), rms_norm(x, params["final_norm"], cfg.norm_eps),
+                   cfg.vocab_size)
+
+
+def position_tables(cfg: ModelConfig, pos, device):
+    """``pos`` as an int64 tensor and its RoPE tables, made once per step."""
+    pos = attn.as_index(pos, device)
+    return pos, rope_tables(pos.reshape(1), cfg.resolved_head_dim, cfg.rope_theta)
+
+
+def decode_block(cfg: ModelConfig, lp: Dict[str, Params], x: torch.Tensor,
+                 ck: torch.Tensor, cv: torch.Tensor, pos, rope,
+                 ffn=None) -> Tuple[torch.Tensor, ...]:
+    """One pre-norm decoder layer at decode: attention against the layer's
+    KV cache (``rope``: the step's ``position_tables``), then ``ffn(lp, h)``
+    (the layer's ``gated_mlp`` when None, or the MoE FFN). Returns (x, new k
+    cache, new v cache)."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    y, ck, cv = attn.decode_attention_block(lp["attn"], h, ck, cv, pos,
+                                            rope_theta=cfg.rope_theta,
+                                            ring=bool(cfg.sliding_window), rope=rope)
+    x = x + y
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + (gated_mlp(lp["mlp"], h) if ffn is None else ffn(lp, h)), ck, cv
+
+
+def decode_layers(cfg: ModelConfig, params: Params, cache: Params, tokens: torch.Tensor,
+                  pos, ffn, dtype) -> Tuple[torch.Tensor, Params]:
+    """A decode step of the dense layer stack with ``ffn`` as each layer's
+    FFN (``decode_block``'s: None for the dense family, the MoE FFN),
+    activations in ``dtype`` (the family's ``DEFAULT_DTYPE``): tokens (B,1)
+    at ``pos`` → (logits (B,1,V_padded), new cache)."""
+    x = embed_one(params, tokens, dtype)
+    pos, rope = position_tables(cfg, pos, x.device)
+    ks, vs = [], []
+    for lp, ck, cv in zip(split_layers(params, cfg.num_layers), cache["k"].unbind(0),
+                          cache["v"].unbind(0)):
+        x, ck, cv = decode_block(cfg, lp, x, ck, cv, pos, rope, ffn)
+        ks.append(ck)
+        vs.append(cv)
+    return logits_out(cfg, params, x), {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Params, tokens: torch.Tensor,
+                pos) -> Tuple[torch.Tensor, Params]:
+    """One decode step: tokens (B,1) at position ``pos`` → (logits, cache')."""
+    return decode_layers(cfg, params, cache, tokens, pos, None, DEFAULT_DTYPE)

@@ -18,7 +18,12 @@ The Mamba2 blocks run K7 (``mamba2.block_forward``), the shared block K5
 in a forward. The shared block's gradient is the sum over its applications
 (autograd adds the gradient of each use of the same leaf). Under
 ``torch.func.vmap`` each application is one K5 launch for the cohort. The
-reference's ``jax.checkpoint`` (remat) is not ported; neither is decode.
+reference's ``jax.checkpoint`` (remat) is not ported.
+
+Decode (``init_cache``, ``decode_step``) keeps one KV cache per
+application of the shared block (``attn_k``/``attn_v``, (n_super, …)) and
+one recurrent state per Mamba2 layer (``super_*`` (n_super, per, …) and
+``tail_*``, whose leading dim is max(tail, 1) as the tail params' is).
 """
 
 from __future__ import annotations
@@ -118,3 +123,68 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Ten
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     logits = forward(cfg, params, batch["tokens"])
     return cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Params:
+    n_super, per, tail = layer_plan(cfg)
+    di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    km1 = mamba2.CONV_K - 1
+    t = dense.cache_len(cfg, max_len)
+    kv = (n_super, batch, t, cfg.num_kv_heads, cfg.resolved_head_dim)
+
+    def zeros(*shape, dtype=DEFAULT_DTYPE):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return {
+        "super_conv_x": zeros(n_super, per, batch, km1, di),
+        "super_conv_bc": zeros(n_super, per, batch, km1, 2 * n),
+        "super_ssm": zeros(n_super, per, batch, nh, cfg.ssm_headdim, n, dtype=torch.float32),
+        "tail_conv_x": zeros(max(tail, 1), batch, km1, di),
+        "tail_conv_bc": zeros(max(tail, 1), batch, km1, 2 * n),
+        "tail_ssm": zeros(max(tail, 1), batch, nh, cfg.ssm_headdim, n, dtype=torch.float32),
+        "attn_k": zeros(*kv),
+        "attn_v": zeros(*kv),
+    }
+
+
+def _decode_mamba_stack(cfg: ModelConfig, x: torch.Tensor, lps, cx, cbc, ss):
+    """Mamba2 layers ``lps`` at decode over their stacked states (one per
+    layer on the leading dim); returns (x, conv_x, conv_bc, ssm) stacked."""
+    out = ([], [], [])
+    for lp, *state in zip(lps, cx.unbind(0), cbc.unbind(0), ss.unbind(0)):
+        x, *state = mamba2.decode_layer(cfg, lp, x, *state)
+        for acc, leaf in zip(out, state):
+            acc.append(leaf)
+    return (x, *(torch.stack(acc) for acc in out))
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Params, tokens: torch.Tensor,
+                pos) -> Tuple[torch.Tensor, Params]:
+    """One decode step: tokens (B,1) at position ``pos`` → (logits, cache')."""
+    n_super, per, tail = layer_plan(cfg)
+    x = dense.embed_one(params, tokens, DEFAULT_DTYPE)
+    pos, rope = dense.position_tables(cfg, pos, x.device)
+    shared = nest(params, "shared_attn.")
+    supers = split_layers(params, n_super, prefix="super_mamba.", per=per) if per \
+        else [[]] * n_super
+    names = ("super_conv_x", "super_conv_bc", "super_ssm", "attn_k", "attn_v")
+    new = {name: [] for name in names}
+    for stack, *state in zip(supers, *(cache[name].unbind(0) for name in names)):
+        cx, cbc, ss, ck, cv = state
+        if per:
+            x, cx, cbc, ss = _decode_mamba_stack(cfg, x, stack, cx, cbc, ss)
+        x, ck, cv = dense.decode_block(cfg, shared, x, ck, cv, pos, rope)
+        for name, leaf in zip(names, (cx, cbc, ss, ck, cv)):
+            new[name].append(leaf)
+    out = {name: torch.stack(leaves) for name, leaves in new.items()}
+    tcx, tcbc, tss = cache["tail_conv_x"], cache["tail_conv_bc"], cache["tail_ssm"]
+    if tail:
+        x, tcx, tcbc, tss = _decode_mamba_stack(
+            cfg, x, split_layers(params, tail, prefix="tail_mamba."), tcx, tcbc, tss)
+    out.update(tail_conv_x=tcx, tail_conv_bc=tcbc, tail_ssm=tss)
+    return dense.logits_out(cfg, params, x), out

@@ -177,15 +177,34 @@ def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotate q/k. x: (..., seq, heads, head_dim); positions: (..., seq)."""
-    freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """cos and sin of the rotary angles, each (..., seq, 1, head_dim/2) f32,
+    for positions (..., seq)."""
+    freqs = rope_frequencies(head_dim, theta, device=positions.device)
     angles = positions[..., :, None].to(torch.float32) * freqs  # (..., seq, hd/2)
-    cos = torch.cos(angles)[..., :, None, :]                     # (..., seq, 1, hd/2)
-    sin = torch.sin(angles)[..., :, None, :]
+    return torch.cos(angles)[..., :, None, :], torch.sin(angles)[..., :, None, :]
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Apply the rotation of ``rope_tables`` to x (..., seq, heads, head_dim)."""
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotate q/k. x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    return rotate(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, n_in: int = 1) -> torch.Tensor:
+    """x's last ``n_in`` dims contracted with w's first ``n_in`` dims, as one
+    matmul (``einsum``'s product and promotion, with far fewer operations on
+    the host: the decode step is host-bound)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    k = math.prod(w.shape[:n_in])
+    out = x.reshape(*x.shape[:x.dim() - n_in], k).to(dt) @ w.reshape(k, -1).to(dt)
+    return out.reshape(*out.shape[:-1], *w.shape[n_in:])
 
 
 # ---------------------------------------------------------------------------
@@ -205,9 +224,8 @@ def init_gated_mlp(generator: torch.Generator, d_model: int, d_ff: int,
 def gated_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: down( silu(gate(x)) * up(x) ), silu written as the reference's
     x·sigmoid(x) so bf16 rounds after each op as there."""
-    g = einsum("...d,df->...f", x, params["w_gate"])
-    u = einsum("...d,df->...f", x, params["w_up"])
-    return einsum("...f,fd->...d", g * torch.sigmoid(g) * u, params["w_down"])
+    g, u = linear(x, params["w_gate"]), linear(x, params["w_up"])
+    return linear(g * torch.sigmoid(g) * u, params["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -230,9 +248,9 @@ def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(params: Params, x: torch.Tensor, vocab_size: int) -> torch.Tensor:
     """Logits over the *padded* vocab; padding columns hold the dtype's min."""
     if "unembed" in params:
-        logits = einsum("...d,dv->...v", x, params["unembed"])
+        logits = linear(x, params["unembed"])
     else:
-        logits = einsum("...d,vd->...v", x, params["tok_embed"])
+        logits = linear(x, params["tok_embed"].T)
     padded = logits.shape[-1]
     if padded > vocab_size:
         mask = torch.arange(padded, device=logits.device) < vocab_size

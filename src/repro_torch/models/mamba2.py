@@ -18,13 +18,18 @@ Dtypes follow the reference at every step: the projections are
 D skip run in f32; the gate is ``rms_norm(y.to(DEFAULT_DTYPE) · silu(z))``
 before ``out_proj``. The SSD's intra-chunk part is K7
 (``ops.ssd_forward``). Every activation is kept: the reference's per-layer
-``jax.checkpoint`` (remat) is not ported, and neither is decode
-(``block_decode``, ``init_cache``, ``decode_step``).
+``jax.checkpoint`` (remat) is not ported.
+
+Decode is the reference's O(1) single-token recurrence, plain torch as
+there: per layer the last CONV_K − 1 projected inputs of each conv
+(``DEFAULT_DTYPE``) and the SSM state (B, nh, hp, N) in f32,
+h ← exp(Δ·A)·h + Δ·x⊗B, y = C·h + D·x (``block_decode``, ``init_cache``,
+``decode_step``; exp through ``kernels._math`` as in the forward).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,7 +41,7 @@ from repro_torch.models import dense
 from repro_torch.kernels._math import exp as _exp
 from repro_torch.models.layers import (DEFAULT_DTYPE, Params, cross_entropy,
                                        dense_init, einsum, embed_tokens,
-                                       init_lm_params, meta_param, rms_norm,
+                                       init_lm_params, linear, meta_param, rms_norm,
                                        split_layers, unembed)
 
 CONV_K = 4  # depthwise causal conv kernel width
@@ -121,8 +126,11 @@ def _ssd_chunked(x, dt, a_neg, b_in, c_in, chunk: int, h0=None):
     return ops.ssd_forward(x, dt, a_neg, b_in, c_in, chunk=chunk, h0=h0)
 
 
-def block_forward(cfg: ModelConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
-    """Full Mamba2 block: projections → conv → SSD → gated norm → out_proj."""
+def block_forward(cfg: ModelConfig, lp: Params, x: torch.Tensor, *, h0=None,
+                  return_state: bool = False):
+    """Full Mamba2 block: projections → conv → SSD → gated norm → out_proj.
+    ``h0`` (B, nh, hp, N) is the SSM state entering the block (zeros when
+    None); ``return_state`` also returns the state leaving it."""
     di, n, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
     z = einsum("bsd,de->bse", x, lp["in_z"])
     xs = einsum("bsd,de->bse", x, lp["in_x"])
@@ -137,11 +145,12 @@ def block_forward(cfg: ModelConfig, lp: Params, x: torch.Tensor) -> torch.Tensor
     dt = F.softplus(dt.to(torch.float32) + lp["dt_bias"])
     a_neg = -_exp(lp["A_log"])
     xh = xs.reshape(*xs.shape[:2], nh, hp)
-    y, _ = _ssd_chunked(xh, dt, a_neg, b_in, c_in, cfg.ssm_chunk)
+    y, h_final = _ssd_chunked(xh, dt, a_neg, b_in, c_in, cfg.ssm_chunk, h0=h0)
     y = y + lp["D"][:, None] * xh  # skip
     y = y.reshape(*y.shape[:2], di)
     y = rms_norm(y.to(DEFAULT_DTYPE) * _silu(z), lp["norm"], cfg.norm_eps)
-    return einsum("bse,ed->bsd", y, lp["out_proj"])
+    out = einsum("bse,ed->bsd", y, lp["out_proj"])
+    return (out, h_final) if return_state else out
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -158,3 +167,82 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Ten
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     logits = forward(cfg, params, batch["tokens"])
     return cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+
+def _conv_step(state: torch.Tensor, cur: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step of the depthwise causal conv: state (B, K−1, C) of the last
+    inputs, cur (B, C). Returns (silu(conv) in f32, the new state)."""
+    dt = torch.promote_types(state.dtype, cur.dtype)
+    window = torch.cat([state.to(dt), cur[:, None, :].to(dt)], dim=1)   # (B,K,C)
+    out = torch.sum(window.to(torch.float32) * w, dim=1) + b
+    return _silu(out), window[:, 1:]
+
+
+def block_decode(cfg: ModelConfig, lp: Params, x: torch.Tensor, conv_x_state: torch.Tensor,
+                 conv_bc_state: torch.Tensor, ssm_state: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-token recurrence. x: (B,1,d).
+
+    States: conv_x (B,K−1,di), conv_bc (B,K−1,2n), ssm (B,nh,hp,N).
+    Returns (out (B,1,d), conv_x, conv_bc, ssm)."""
+    di, n, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    z = linear(x, lp["in_z"])
+    xs = linear(x, lp["in_x"])[:, 0]
+    bc = torch.cat([linear(x, lp["in_b"]), linear(x, lp["in_c"])], dim=-1)[:, 0]
+    dt = linear(x, lp["in_dt"])[:, 0]
+    xs_f, new_conv_x = _conv_step(conv_x_state, xs, lp["conv_x_w"], lp["conv_x_b"])
+    bc_f, new_conv_bc = _conv_step(conv_bc_state, bc, lp["conv_bc_w"], lp["conv_bc_b"])
+    b_in, c_in = torch.split(bc_f, n, dim=-1)
+    dt1 = F.softplus(dt.to(torch.float32) + lp["dt_bias"])            # (B,nh)
+    a_neg = -_exp(lp["A_log"])
+    dec = _exp(dt1 * a_neg)                                             # (B,nh)
+    xh = xs_f.reshape(-1, nh, hp)
+    h_new = dec[:, :, None, None] * ssm_state \
+        + (dt1[:, :, None] * xh)[..., None] * b_in[:, None, None, :]
+    y = (h_new @ c_in[:, None, :, None])[..., 0] + lp["D"][:, None] * xh
+    y = y.reshape(-1, 1, di)
+    y = rms_norm(y.to(DEFAULT_DTYPE) * _silu(z), lp["norm"], cfg.norm_eps)
+    return linear(y, lp["out_proj"]), new_conv_x, new_conv_bc, h_new
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Params:
+    """The SSM cache is O(1) in context length (``max_len`` unused, by design)."""
+    del max_len
+    di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    layers = cfg.num_layers
+    return {
+        "conv_x": torch.zeros((layers, batch, CONV_K - 1, di), dtype=DEFAULT_DTYPE,
+                              device=device),
+        "conv_bc": torch.zeros((layers, batch, CONV_K - 1, 2 * n), dtype=DEFAULT_DTYPE,
+                               device=device),
+        "ssm": torch.zeros((layers, batch, nh, cfg.ssm_headdim, n), dtype=torch.float32,
+                           device=device),
+    }
+
+
+def decode_layer(cfg: ModelConfig, lp: Dict[str, Params], x: torch.Tensor, cx, cbc, ss):
+    """One pre-norm Mamba2 layer at decode: (x, conv_x, conv_bc, ssm)."""
+    h = rms_norm(x, lp["ln"], cfg.norm_eps)
+    y, cx, cbc, ss = block_decode(cfg, lp["block"], h, cx, cbc, ss)
+    return x + y, cx, cbc, ss
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Params, tokens: torch.Tensor,
+                pos) -> Tuple[torch.Tensor, Params]:
+    """One decode step: tokens (B,1) → (logits, cache'). The recurrent state
+    carries the position, so ``pos`` is unused."""
+    del pos
+    x = dense.embed_one(params, tokens, DEFAULT_DTYPE)
+    out = {name: [] for name in ("conv_x", "conv_bc", "ssm")}
+    for lp, *state in zip(split_layers(params, cfg.num_layers), cache["conv_x"].unbind(0),
+                          cache["conv_bc"].unbind(0), cache["ssm"].unbind(0)):
+        x, *state = decode_layer(cfg, lp, x, *state)
+        for name, leaf in zip(out, state):
+            out[name].append(leaf)
+    return dense.logits_out(cfg, params, x), {k: torch.stack(v) for k, v in out.items()}

@@ -15,8 +15,15 @@ whose expert is absent adds nothing. That is the per-shard expert set of
 the reference's expert-parallel ``_moe_ffn_a2a``, run without its
 all-to-all: what the absent experts would add is not computed here.
 
+Decode (``cache_len``, ``init_cache``, ``decode_step``) is the dense
+decoder's with this FFN: the expert products of a decode step go through
+K6 too, and under the serving tier's vmap K6's rule folds every slot's
+rows into one launch per product per layer per tick. (The reference's
+``ModelServer`` cannot serve this family: ``ragged_dot`` under ``vmap``
+raises NotImplementedError in jax 0.9.0.)
+
 Not ported, each raising ``NotImplementedError`` where reached: the mesh
-paths (``_moe_ffn_a2a`` and the shard_map layouts), remat and decode.
+paths (``_moe_ffn_a2a`` and the shard_map layouts) and remat.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import grouped_matmul
 from repro_torch.models import attention as attn
+from repro_torch.models import dense
 from repro_torch.models.dense import meta_decoder
 from repro_torch.models.layers import (DEFAULT_DTYPE, Params, cross_entropy, dense_init,
                                        embed_tokens, init_lm_params, meta_param, rms_norm,
@@ -189,9 +197,17 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     return cross_entropy(logits[:, :-1], batch["labels"][:, 1:]) + AUX_COEF * aux
 
 
-def _no_decode(*_args, **_kwargs):
-    raise NotImplementedError("MoE decode (KV cache, decode_step) is not ported; it "
-                              "belongs to the serving slice")
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
 
 
-cache_len = init_cache = decode_step = _no_decode
+cache_len, init_cache = dense.cache_len, dense.init_cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Params, tokens: torch.Tensor,
+                pos, *, mesh=None) -> Tuple[torch.Tensor, Params]:
+    """One decode step: tokens (B,1) at position ``pos`` → (logits, cache')."""
+    return dense.decode_layers(cfg, params, cache, tokens, pos,
+                               lambda lp, h: moe_ffn(cfg, lp["moe"], h, mesh=mesh)[0],
+                               DEFAULT_DTYPE)

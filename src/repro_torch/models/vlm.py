@@ -26,9 +26,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import dense
 from repro_torch.models.layers import (DEFAULT_DTYPE, Params, cross_entropy,
-                                       embed_tokens, flatten, gated_mlp,
-                                       init_embeddings, meta_param, nest, rms_norm,
-                                       split_layers, unembed)
+                                       einsum, embed_tokens, flatten, gated_mlp,
+                                       init_embeddings, linear, meta_param, nest,
+                                       rms_norm, split_layers, unembed)
 
 
 def layer_plan(cfg: ModelConfig) -> Tuple[int, int]:
@@ -111,3 +111,67 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     logits = forward(cfg, params, batch["tokens"], batch["vision_embeds"])
     return cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+
+
+# ---------------------------------------------------------------------------
+# Decode: self-attention KV caches and the static cross-attention KV
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Params:
+    n_super, per = layer_plan(cfg)
+    t = dense.cache_len(cfg, max_len)
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=DEFAULT_DTYPE, device=device)
+
+    return {"k": zeros(n_super, per, batch, t, kvh, hd),
+            "v": zeros(n_super, per, batch, t, kvh, hd),
+            # Cross-attention K/V over the vision tokens: warmed once, read
+            # at every step.
+            "xk": zeros(n_super, batch, cfg.vision_tokens, kvh, hd),
+            "xv": zeros(n_super, batch, cfg.vision_tokens, kvh, hd)}
+
+
+def warm_cross_cache(cfg: ModelConfig, params: Params, cache: Params,
+                     vision_embeds: torch.Tensor) -> Params:
+    """The cache with every cross layer's K/V over ``vision_embeds`` (B,
+    vision_tokens, d) filled in."""
+    vision = vision_embeds.to(DEFAULT_DTYPE)
+    ks, vs = [], []
+    for cp in split_layers(params, layer_plan(cfg)[0], prefix="cross_layers."):
+        ks.append(einsum("btd,dhk->bthk", vision, cp["attn"]["wk"]))
+        vs.append(einsum("btd,dhk->bthk", vision, cp["attn"]["wv"]))
+    return dict(cache, xk=torch.stack(ks).to(DEFAULT_DTYPE),
+                xv=torch.stack(vs).to(DEFAULT_DTYPE))
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Params, tokens: torch.Tensor,
+                pos) -> Tuple[torch.Tensor, Params]:
+    """One decode step: tokens (B,1) at position ``pos`` → (logits, cache')."""
+    n_super, per = layer_plan(cfg)
+    x = dense.embed_one(params, tokens, DEFAULT_DTYPE)
+    pos, rope = dense.position_tables(cfg, pos, x.device)
+    selfs = split_layers(params, n_super, prefix="self_layers.", per=per) if per \
+        else [[]] * n_super
+    crosses = split_layers(params, n_super, prefix="cross_layers.")
+    new_k, new_v = [], []
+    for stack, cp, cks, cvs, xk, xv in zip(selfs, crosses, cache["k"].unbind(0),
+                                           cache["v"].unbind(0), cache["xk"].unbind(0),
+                                           cache["xv"].unbind(0)):
+        ks, vs = [], []
+        for lp, ck, cv in zip(stack, cks.unbind(0), cvs.unbind(0)):
+            x, ck, cv = dense.decode_block(cfg, lp, x, ck, cv, pos, rope)
+            ks.append(ck)
+            vs.append(cv)
+        new_k.append(torch.stack(ks) if ks else cks)
+        new_v.append(torch.stack(vs) if vs else cvs)
+        h = rms_norm(x, cp["ln1"], cfg.norm_eps)
+        o = attn.decode_attention(linear(h, cp["attn"]["wq"]), xk, xv, cfg.vision_tokens)
+        y = linear(o, cp["attn"]["wo"], 2)
+        x = x + torch.tanh(cp["gate_attn"]).to(y.dtype) * y
+        h = rms_norm(x, cp["ln2"], cfg.norm_eps)
+        x = x + torch.tanh(cp["gate_mlp"]).to(x.dtype) * gated_mlp(cp["mlp"], h)
+    return dense.logits_out(cfg, params, x), dict(cache, k=torch.stack(new_k),
+                                                  v=torch.stack(new_v))

@@ -1152,3 +1152,117 @@ def test_cuda_async_rounds_feed_the_clock_staleness_to_k1_k2(cuda_device, compac
     assert len(seen) == fed.rounds
     # the override is the clock's, not the round counter
     assert any(not np.all(s[s < 1e5] == t) for t, (s, _) in enumerate(seen))
+
+
+# ---------------------------------------------------------------------------
+# The serving tier (slice 9): decode attention, a slot tick, K6 at decode
+# ---------------------------------------------------------------------------
+
+
+def _decode_attention_f64(q, k, v, cur_len):
+    """Single-token attention in f64: the reference's einsums over (B, KVH,
+    G, 1, T), positions ≥ cur_len masked."""
+    b, _, h, d = q.shape
+    kvh, t = k.shape[2], k.shape[1]
+    qf = (q.double() / d ** 0.5).reshape(b, 1, kvh, h // kvh, d)
+    s = torch.einsum("bskgd,btkd->bkgst", qf, k.double())
+    s = torch.where(torch.arange(t, device=q.device) < cur_len, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgst,btkd->bskgd", p, v.double()).reshape(b, 1, h, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(8, 128, 14, 2, 64), (2, 1601, 64, 8, 128)],
+                         ids=["qwen2-slots", "vlm-cross"])
+def test_cuda_decode_attention_matches_f64(cuda_device, shape, dtype):
+    """decode_attention on the card (f32 math over bf16 or f32 caches)
+    against the same function in f64: f32 outputs within 1e-5 relative plus
+    1e-6 absolute; bf16 outputs within one bf16 ulp of the f64 result plus
+    1e-6 (the one rounding to bf16)."""
+    from repro_torch.models.attention import decode_attention
+
+    b, t, h, kvh, d = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(t)
+    q = torch.randn(b, 1, h, d, generator=gen, device=cuda_device).to(dtype)
+    k = torch.randn(b, t, kvh, d, generator=gen, device=cuda_device).to(dtype)
+    v = torch.randn(b, t, kvh, d, generator=gen, device=cuda_device).to(dtype)
+    for cur in (1, t // 3, t):
+        got = decode_attention(q, k, v, cur)
+        want = _decode_attention_f64(q, k, v, cur)
+        assert got.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-6)
+        else:
+            gap = (got.double() - want).abs()
+            assert bool((gap <= _bf16_ulp(want.float()).double() + 1e-6).all()), float(gap.max())
+
+
+@pytest.mark.cuda
+def test_cuda_slot_tick_against_batch1_steps(cuda_device):
+    """A 4-slot tick of the smoke qwen2 on the card, each slot at its own
+    position, against batch-1 steps on each slot's cache: the logits within
+    2 bf16 ulp of the largest logit (cuBLAS may round a product differently
+    at another row count, chip_smoke.py phase 14a), and ``generate`` run as
+    one slot of the same width gives the served tokens bit for bit."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import build_model
+    from repro_torch.serve import (ModelServer, TrafficConfig, TrafficSimulator,
+                                   VersionRegistry, generate)
+    from repro_torch.serve.server import slot_tick
+
+    model = build_model(smoke_variant(get_config("qwen2-0.5b")))
+    params = model.init_params(torch.Generator(device=cuda_device).manual_seed(0))
+    width, caches, toks = 4, [], []
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    with torch.no_grad():
+        for i in range(width):
+            cache = model.init_cache(1, 16, device=cuda_device)
+            for pos in range(i + 1):
+                tok = torch.randint(0, 512, (1, 1), generator=gen, device=cuda_device)
+                _, cache = model.decode_step(params, cache, tok.to(torch.int32), pos)
+            caches.append(cache)
+            toks.append(torch.randint(0, 512, (1, 1), generator=gen, device=cuda_device))
+        stacked = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+        logits, _ = slot_tick(model)(params, stacked,
+                                     torch.stack(toks).to(torch.int32),
+                                     torch.arange(1, width + 1, device=cuda_device))
+        for i in range(width):
+            one, _ = model.decode_step(params, caches[i], toks[i].to(torch.int32), i + 1)
+            top = float(_bf16_ulp(one.float().abs().max()))
+            assert float((logits[i].float() - one.float()).abs().max()) <= 2 * top
+    reg = VersionRegistry()
+    reg.publish(params, round_idx=-1)
+    srv = ModelServer(model, reg, batch_width=width, max_len=16, device=cuda_device)
+    reqs = TrafficSimulator(TrafficConfig(prompt_len=(1, 6), output_len=(2, 8), seed=3,
+                                          max_requests=2 * width), vocab=512).take(2 * width)
+    for r in reqs:
+        srv.submit(r)
+    recs = {rec.rid: rec for rec in srv.pump()}
+    for r in reqs:
+        assert recs[r.rid].tokens == tuple(generate(model, params, r.prompt[None],
+                                                    r.output_len, r.draws, slots=width)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("slots", [1, 8])
+def test_cuda_grouped_matmul_at_decode_row_counts(cuda_device, slots, dtype):
+    """K6 at a decode tick's rows: each slot routes one token to 8 of 16
+    experts (8 rows a slot, most groups empty or of one row), the slots
+    folded by the vmap rule into one launch, against the plain version."""
+    from repro_torch.kernels import moe_gmm as tgmm
+
+    gen = torch.Generator(device=cuda_device).manual_seed(slots)
+    g, k, n = 16, 256, 128
+    xs = torch.randn(slots, 8, k, generator=gen, device=cuda_device).to(dtype)
+    rhs = torch.randn(g, k, n, generator=gen, device=cuda_device).to(dtype)
+    picks = torch.stack([torch.randperm(g, generator=gen, device=cuda_device)[:8]
+                         for _ in range(slots)])
+    sizes = (picks[:, :, None] == torch.arange(g, device=cuda_device)).sum(1).to(torch.int32)
+    before = tgmm.LAUNCHES["grouped_matmul"]
+    got = torch.func.vmap(lambda x, s: ops.grouped_matmul(x, rhs, s))(xs, sizes)
+    torch.cuda.synchronize()
+    assert tgmm.LAUNCHES["grouped_matmul"] == before + 1
+    want = tgmm.gmm_plain_clients(xs.reshape(slots * 8, k), rhs, sizes)
+    assert_gmm_close(got.reshape(slots * 8, n), want)

@@ -119,6 +119,14 @@ SLICE8_MODULES = ("repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
                   "repro_torch.fed.engine", "repro_torch.fed.hierarchy", "repro_torch.fed")
 
 
+# The modules slice 9 added or extended.
+SLICE9_MODULES = ("repro_torch.serve", "repro_torch.serve.metrics", "repro_torch.serve.traffic",
+                  "repro_torch.serve.server", "repro_torch.serve.publish", "repro_torch.launch",
+                  "repro_torch.launch.serve", "repro_torch.examples.serve_global_model",
+                  "repro_torch.models.dense", "repro_torch.models.mamba2",
+                  "repro_torch.models.moe")
+
+
 # One fresh interpreter loads torch and numpy, then forks a child for each
 # module; the child imports that module alone and reports what of JAX and the
 # reference package sys.modules then holds. One interpreter start-up (most of
@@ -154,7 +162,7 @@ print(json.dumps(found))
 def loaded_by_import():
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run([sys.executable, "-c", _FORK_EACH, *SLICE6_MODULES,
-                           *SLICE7_MODULES, *SLICE8_MODULES],
+                           *SLICE7_MODULES, *SLICE8_MODULES, *SLICE9_MODULES],
                           capture_output=True, text=True, timeout=240, env=env)
     assert proc.returncode == 0, proc.stderr
     return json.loads(proc.stdout.splitlines()[-1])
@@ -183,6 +191,16 @@ def test_slice7_module_loads_no_jax_and_no_reference(module, loaded_by_import):
 @pytest.mark.parametrize("module", SLICE8_MODULES)
 def test_slice8_module_loads_no_jax_and_no_reference(module, loaded_by_import):
     """As for slices 6 and 7: imported alone in a fresh process, the module
+    pulls in neither JAX nor the reference package."""
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    assert path.exists() or (path.parent / path.stem / "__init__.py").exists()
+    assert loaded_by_import[module] == [], loaded_by_import[module]
+
+
+@pytest.mark.parametrize("module", SLICE9_MODULES)
+def test_slice9_module_loads_no_jax_and_no_reference(module, loaded_by_import):
+    """As for slices 6–8: imported alone in a fresh process, the module (the
+    serving tier, its launcher and example, the families that gained decode)
     pulls in neither JAX nor the reference package."""
     path = ROOT / "src" / (module.replace(".", "/") + ".py")
     assert path.exists() or (path.parent / path.stem / "__init__.py").exists()

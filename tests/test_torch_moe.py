@@ -369,9 +369,36 @@ def test_unported_paths_raise(pair):
         moe.forward(tm.cfg, tp, tb["tokens"], mesh=object())
     with pytest.raises(NotImplementedError, match="remat"):
         moe.forward(tm.cfg, tp, tb["tokens"], remat=True)
-    for fn in (moe.cache_len, moe.init_cache, moe.decode_step):
-        with pytest.raises(NotImplementedError, match="decode"):
-            fn(tm.cfg, 1, 1)
+    with pytest.raises(NotImplementedError, match="shard_map"):
+        moe.decode_step(tm.cfg, tp, tm.init_cache(2, 4, device="cpu"),
+                        tb["tokens"][:, :1], 0, mesh=object())
+
+
+def test_decode_step_matches_reference_in_f32(pair, monkeypatch):
+    """MoE decode against the reference's ``decode_step`` called directly
+    (its ``ModelServer`` cannot vmap ``ragged_dot``), every dtype f32 as in
+    ``test_torch_decode.py``: the logits at every prompt position and the
+    final KV caches to 1e-5 of each array's largest entry. The expert
+    products go through K6's wrapper (its plain version here)."""
+    from test_torch_decode import f32_caches, teacher_force_both
+
+    monkeypatch.setattr(jmoe, "DEFAULT_DTYPE", jnp.float32)
+    monkeypatch.setattr(moe, "DEFAULT_DTYPE", torch.float32)
+    jm, tm, jp, _ = pair
+    jp32 = jax.tree.map(lambda a: np.asarray(a, np.float32), jp)
+    tp32 = params_from_jax(jp32)
+    toks = np.random.default_rng(6).integers(0, tm.cfg.vocab_size, size=(3, 6)).astype(np.int32)
+    jc, tc = f32_caches(jm, tm, toks.shape[0], 8)
+    calls = []
+    real = tgmm.grouped_matmul_fwd
+    monkeypatch.setattr(tgmm, "grouped_matmul_fwd",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    jc, tc = teacher_force_both(jm, tm, jp32, tp32, toks, jc, tc)
+    assert len(calls) == 6 * tm.cfg.num_layers * 3
+    for name in ("k", "v"):
+        want, got = np.asarray(jc[name]), tc[name].numpy()
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), name
+        assert np.array_equal(got[:, :, 6:] == 0, want[:, :, 6:] == 0)
 
 
 # ---------------------------------------------------------------------------
