@@ -155,7 +155,21 @@ Phases, in order; any failure raises and the script exits nonzero:
      version at phase 2's tolerance and the fullest one timed), tokens
      equal to ``generate``'s, a tick's logits within TICK_ULPS of batch-1
      steps'.
- 15. A JSON line of per-kernel numbers, then the result line.
+ 15. Slice 10, in a child process as phase 13, under deterministic
+     algorithms (phase_telemetry). 15a: K1 + K2 at K = 2048 — lazy data
+     (make_lazy_vision_data, image 32), full-width ResNet-18, m = 16,
+     client_chunk 8, batch 32, 4 local steps, 3 rounds, heterosel_pallas —
+     with a TelemetryHook: K1 and K2 once a round, each cohort equal to the
+     plain versions' selection, the trace valid, its select/execute/
+     aggregate spans equal to select_ms/execute_ms/aggregate_ms, params and
+     histories bitwise equal to the run without the hook; K1 and K2 then
+     timed on the run's final state. 15b: phase 3's federation under the
+     'drift' scenario, int8 compression over the batched executor, FedAvgM
+     and a TelemetryHook: raw/wire bytes, StabilityReport == summary()
+     exactly. 15c: phase 4's hierarchical federation under 'churn' with a
+     TelemetryHook: K4 once a round, no offline client selected, the
+     outer_select and inner_select spans summing to select_ms.
+ 16. A JSON line of per-kernel numbers, then the result line.
 
 It needs one card, imports nothing of JAX or of the reference package, and
 exits nonzero without printing a result when torch sees no CUDA device.
@@ -537,27 +551,10 @@ def phase_kernels(dev):
             glob = tss._combine_stats(tss.score_stats_plain(stacked, k=k, block=blk))
             gpad = torch.nn.functional.pad(
                 -torch.log(-torch.log(torch.rand(k, generator=gen, device=dev))), (0, kpad - k))
-            mb = min(m, blk)
             kw3 = dict(k=k, block=blk, t=float(t), tau=float(tau), use_ov=False,
                        decay=decay, cfg=cfg)
-            kw = dict(kw3, mb=mb)
             iters = 200 if k < 4096 else 50
-            row = {"K": k, "m": m, "dtype": str(dtype).split(".")[-1], "block": blk,
-                   "nblocks": nblocks}
-            row["k1_ms"] = time_ms(lambda: tss.score_stats(stacked, k=k, block=blk), iters)
-            row["k1_plain_ms"] = time_ms(
-                lambda: tss.score_stats_plain(stacked, k=k, block=blk), iters)
-            row["k2_ms"] = time_ms(lambda: tss.score_select(stacked, glob, gpad, **kw), iters)
-            row["k2_plain_ms"] = time_ms(
-                lambda: tss.score_select_plain(stacked, glob, gpad, **kw), iters)
-            row["k1_device_ms"] = device_ms(
-                lambda: tss.score_stats(stacked, k=k, block=blk), "stats_kernel")
-            row["k1_plain_device_ms"] = device_ms(
-                lambda: tss.score_stats_plain(stacked, k=k, block=blk), None)
-            row["k2_device_ms"] = device_ms(
-                lambda: tss.score_select(stacked, glob, gpad, **kw), "select_kernel")
-            row["k2_plain_device_ms"] = device_ms(
-                lambda: tss.score_select_plain(stacked, glob, gpad, **kw), None)
+            row = k1_k2_timing(stacked, glob, gpad, k, m, kw3, iters)
             row["k3_ms"] = time_ms(lambda: tss.score_probs(stacked, glob, **kw3), iters)
             row["k3_plain_ms"] = time_ms(
                 lambda: tss.score_probs_plain(stacked, glob, **kw3), iters)
@@ -565,9 +562,7 @@ def phase_kernels(dev):
                 lambda: tss.score_probs(stacked, glob, **kw3), "select_kernel")
             row["k3_plain_device_ms"] = device_ms(
                 lambda: tss.score_probs_plain(stacked, glob, **kw3), None)
-            b1, b2, b3 = kernel_bytes(k, stacked.element_size(), nblocks, mb, False)
-            row["k1_bound_ms"] = b1 / HBM_BYTES_PER_S * 1e3
-            row["k2_bound_ms"] = b2 / HBM_BYTES_PER_S * 1e3
+            _, _, b3 = kernel_bytes(k, stacked.element_size(), nblocks, min(m, blk), False)
             row["k3_bound_ms"] = b3 / HBM_BYTES_PER_S * 1e3
             timings.append(row)
             print("timing " + json.dumps(row), flush=True)
@@ -595,6 +590,38 @@ def phase_kernels(dev):
             timings.append(row)
             print("timing " + json.dumps(row), flush=True)
     return err, timings
+
+
+def k1_k2_timing(stacked, glob, gpad, k: int, m: int, kw3: dict, iters: int) -> dict:
+    """K1's and K2's times on one packed state (``kw3``: K2's arguments but
+    ``mb``): CUDA events over back-to-back wrapper calls and profiler device
+    time, each beside its plain version's, and the byte bounds. K2 takes
+    the Gumbel row ``gpad``, padded to the layout."""
+    from repro_torch.kernels import score_select as tss
+
+    blk = kw3["block"]
+    nblocks = stacked.shape[1] // blk
+    mb = min(m, blk)
+    kw = dict(kw3, mb=mb)
+    row = {"K": k, "m": m, "dtype": str(stacked.dtype).split(".")[-1], "block": blk,
+           "nblocks": nblocks}
+    row["k1_ms"] = time_ms(lambda: tss.score_stats(stacked, k=k, block=blk), iters)
+    row["k1_plain_ms"] = time_ms(lambda: tss.score_stats_plain(stacked, k=k, block=blk), iters)
+    row["k2_ms"] = time_ms(lambda: tss.score_select(stacked, glob, gpad, **kw), iters)
+    row["k2_plain_ms"] = time_ms(
+        lambda: tss.score_select_plain(stacked, glob, gpad, **kw), iters)
+    row["k1_device_ms"] = device_ms(
+        lambda: tss.score_stats(stacked, k=k, block=blk), "stats_kernel")
+    row["k1_plain_device_ms"] = device_ms(
+        lambda: tss.score_stats_plain(stacked, k=k, block=blk), None)
+    row["k2_device_ms"] = device_ms(
+        lambda: tss.score_select(stacked, glob, gpad, **kw), "select_kernel")
+    row["k2_plain_device_ms"] = device_ms(
+        lambda: tss.score_select_plain(stacked, glob, gpad, **kw), None)
+    b1, b2, _ = kernel_bytes(k, stacked.element_size(), nblocks, mb, kw3["use_ov"])
+    row["k1_bound_ms"] = b1 / HBM_BYTES_PER_S * 1e3
+    row["k2_bound_ms"] = b2 / HBM_BYTES_PER_S * 1e3
+    return row
 
 
 def check_probs_kernels(dev, err: dict, t: int, tau, cfg) -> None:
@@ -2350,43 +2377,6 @@ def phase_async(dev, err: dict):
     return launches, hier_launches
 
 
-def run_phase_async(err: dict):
-    """Phase 13 in a child process of this script, with the cuBLAS workspace
-    setting that deterministic algorithms require (cuBLAS reads it when a
-    handle is made), so phases 1-12 run with the default. The child reuses
-    the kernels built on disk. Returns its launch counts by path and folds
-    its K4 error into ``err``."""
-    import tempfile
-
-    fd, out = tempfile.mkstemp(prefix="chip_smoke_phase13_", suffix=".json")
-    os.close(fd)
-    try:
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phase-13",
-                               out], env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
-        if proc.returncode != 0:
-            raise RuntimeError(f"phase 13's process exited with {proc.returncode}")
-        with open(out) as f:
-            got = json.load(f)
-    finally:
-        os.unlink(out)
-    print(f"phase 13: its process took {time.perf_counter() - t0:.1f} s", flush=True)
-    err["segment_probs"] = max(err["segment_probs"], got["segment_probs_err"])
-    return got["async"], got["async_hierarchical"]
-
-
-def phase_async_child(out: str) -> int:
-    """The child of ``run_phase_async``: phase 13, its result into ``out``."""
-    from repro_torch.device import resolve_device
-
-    err = {"segment_probs": 0.0}
-    flat, hier = phase_async(resolve_device("cuda"), err)
-    with open(out, "w") as f:
-        json.dump({"async": flat, "async_hierarchical": hier,
-                   "segment_probs_err": err["segment_probs"]}, f)
-    return 0
-
-
 # Phase 14: the serving tier. 14a serves SERVE_TRAFFIC on the version of the
 # previous round while phase 5's federation trains; 14b holds teacher-forced
 # decode against the forward at full width and runs a server wave each on
@@ -2793,37 +2783,384 @@ def phase_serving(dev) -> dict:
     return {"paths": paths, "numbers": out}
 
 
-def run_phase_serving() -> dict:
-    """Phase 14 in a child process of this script (as phase 13), so that it
-    starts with the card's memory free; with the cuBLAS workspace setting
-    that deterministic algorithms require, should 14a need them. Returns
-    the child's launch counts by path and its numbers."""
+# Phase 15: slice 10 — the telemetry plane, compression and the scenarios on
+# the card. 15a: K1 + K2 at a cross-device K (LARGE_K clients of lazy data,
+# LARGE_M a round, the cohort trained LARGE_CHUNK clients at a time) with a
+# TelemetryHook; 15b: phase 3's federation under the 'drift' scenario with
+# int8 compression and FedAvgM; 15c: phase 4's under 'churn'.
+LARGE_K = 2048
+LARGE_M = 16
+LARGE_CHUNK = 8
+P15_ROUNDS = 3
+SPAN_ATOL_MS = 1e-6   # a span and its *_ms are the same two clock readings
+
+
+def span_ms(events, name: str) -> list:
+    """The durations (ms) of the wall spans called ``name``, in order."""
+    opened, out = {}, []
+    for e in events:
+        if e["name"] == name and e["ph"] in ("B", "E"):
+            key = (e["pid"], e["tid"])
+            if e["ph"] == "B":
+                opened[key] = e["ts"]
+            else:
+                out.append((e["ts"] - opened.pop(key)) / 1e3)
+    return out
+
+
+def check_spans(where: str, res, events, spans: dict) -> float:
+    """The trace passes the schema check and each phase's spans give the
+    FLResult's per-round ms (``spans``: ms field -> the span names summing
+    to it). Returns the largest gap (ms)."""
+    from repro_torch.obs import validate_trace_events
+
+    validate_trace_events(events)
+    worst = 0.0
+    for field, names in spans.items():
+        got = np.sum([span_ms(events, n) for n in names], axis=0)
+        want = np.asarray(getattr(res, field))
+        if got.shape != want.shape or not np.allclose(got, want, rtol=0.0, atol=SPAN_ATOL_MS):
+            raise AssertionError(f"{where}: {'+'.join(names)} spans {got} != {field} {want}")
+        worst = max(worst, float(np.abs(got - want).max()))
+    return worst
+
+
+def watch_first_round(executor) -> dict:
+    """Wraps a CompressedExecutor over the batched executor for its first
+    round: keeps the anchor, the inner executor's client stack before the
+    codec, and the cohort the codec hands on."""
+    seen, outer, inner = {}, executor.run_round, executor.inner.run_round
+
+    def inner_round(*args, **kwargs):
+        cohort = inner(*args, **kwargs)
+        if "raw" not in seen:
+            seen["raw"] = {k: v.clone() for k, v in cohort.stacked_params.items()}
+        return cohort
+
+    def outer_round(params, *args, **kwargs):
+        cohort = outer(params, *args, **kwargs)
+        if "cohort" not in seen:
+            seen["anchor"] = {k: v.clone() for k, v in params.items()}
+            seen["cohort"] = cohort
+        return cohort
+
+    executor.inner.run_round, executor.run_round = inner_round, outer_round
+    return seen
+
+
+def check_int8_round(seen: dict) -> float:
+    """Holds the first round of int8 over the batched executor against a
+    plain computation on the same client stack: each client's delta coded
+    on its own (scale max|delta| / 127, codes round(delta / scale) in
+    [-127, 127]) and decoded must give the codec's stack bitwise, and the
+    weighted mean of the decoded clients its aggregate. Returns the mean's
+    largest gap to the plain weighted mean (summation order only)."""
+    import torch
+
+    raw, anchor, cohort = seen["raw"], seen["anchor"], seen["cohort"]
+    m = next(iter(raw.values())).shape[0]
+    w = (torch.ones(m, device=cohort.avg_params[next(iter(raw))].device)
+         if cohort.weights is None else cohort.weights.to(torch.float32))
+    gap = 0.0
+    for k, stack in raw.items():
+        rebuilt = []
+        for i in range(m):
+            delta = stack[i] - anchor[k]
+            scale = torch.clamp_min(delta.abs().max(), 1e-12) / torch.full(
+                (), 127.0, device=delta.device)
+            codes = torch.clamp(torch.round(delta / scale), -127, 127)
+            rebuilt.append(anchor[k] + codes * scale)
+            if not torch.equal(rebuilt[i], cohort.stacked_params[k][i]):
+                raise AssertionError(f"15b: client {i}'s decoded {k} differs from the "
+                                     "plain per-client codec")
+        mean = sum(wi * r for wi, r in zip(w, rebuilt)) / w.sum()
+        got = cohort.avg_params[k]
+        gap = max(gap, float((got - mean).abs().max()))
+        if not torch.allclose(got, mean, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"15b: the aggregate of {k} is {gap} from the plain "
+                                 "weighted mean of the decoded clients")
+    if all(torch.equal(raw[k], cohort.stacked_params[k]) for k in raw):
+        raise AssertionError("15b: the codec handed on the raw client stack")
+    return gap
+
+
+def phase_telemetry(dev) -> dict:
+    """Phase 15 (run in its own process, under deterministic algorithms).
+
+    15a. make_lazy_vision_data at K = LARGE_K (image 32) on full-width
+    ResNet-18, m = LARGE_M, client_chunk LARGE_CHUNK, batch 32, 4 local
+    steps, P15_ROUNDS rounds, heterosel_pallas, with a TelemetryHook: K1 and
+    K2 once a round at K = 2048, each cohort equal to the plain versions'
+    selection on the same state and draws; the trace validates and its
+    select/execute/aggregate spans equal select_ms/execute_ms/aggregate_ms;
+    params and histories bitwise equal to the same run without the hook.
+    K1 and K2 are then timed on the run's final state. 15b. Phase 3's
+    federation under make_scenario('drift') (its lazy drifting data and
+    LabelDriftHook) with compression='int8' over the batched executor,
+    FedAvgM and a TelemetryHook: raw/wire bytes, StabilityReport equal to
+    summary() exactly. 15c. Phase 4's hierarchical federation under
+    make_scenario('churn') with a TelemetryHook: K4 once a round, no offline
+    client selected, outer_select + inner_select spans equal select_ms.
+    Returns the launch counts by path and the phase's numbers."""
+    import torch
+    from repro_torch.configs import FedConfig, get_config
+    from repro_torch.core.scoring import HeteRoScoreConfig, diversity_decay
+    from repro_torch.core.selection import SelectorConfig, dynamic_temperature, gumbel_noise
+    from repro_torch.core.state import score_inputs
+    from repro_torch.data import make_lazy_vision_data
+    from repro_torch.fed import FederatedSpec, HierarchyConfig, RoundHook, make_scenario
+    from repro_torch.kernels import score_select as tss
+    from repro_torch.models import build_model
+    from repro_torch.obs import StabilityReport, TelemetryHook
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t_phase = time.perf_counter()
+    model = build_model(get_config("resnet18-cifar10"))
+    n_params = sum(math.prod(p.shape) for p in model.module.parameters())
+    paths, numbers = {}, {}
+
+    def noise(t, k):   # a function of the round: every run draws the same rows
+        return gumbel_noise(torch.Generator(device=dev).manual_seed(1000 + t), k)
+
+    def finite(where, res):
+        if not np.all(np.isfinite(res.train_loss)) or not all(
+                bool(torch.isfinite(p).all()) for p in res.params.values()):
+            raise AssertionError(f"{where}: non-finite loss or parameters")
+
+    # 15a ------------------------------------------------------------------
+    fed = FedConfig(num_clients=LARGE_K, participation=LARGE_M / LARGE_K,
+                    rounds=P15_ROUNDS, local_batch=32, lr=0.01, mu=0.1,
+                    dirichlet_alpha=0.1, seed=0, client_chunk=LARGE_CHUNK)
+    assert fed.num_selected == LARGE_M
+    data = make_lazy_vision_data(fed)
+    sel_cfg = SelectorConfig(num_selected=LARGE_M)
+
+    class CheckRound(RoundHook):
+        """Per round: the cohort equals the plain versions' selection on the
+        same state and draws, and K1 and K2 launched once each."""
+
+        def on_round_start(self, ctx):
+            t, eng = ctx.round_idx, ctx.engine
+            sel, _, _ = tss.fused_score_select_plain(
+                *score_inputs(eng.state), round_idx=t, tau=dynamic_temperature(t, sel_cfg),
+                m=LARGE_M, gumbel=eng.round_noise(t), cfg=HeteRoScoreConfig())
+            self.expected = np.zeros(fed.num_clients, bool)
+            self.expected[sel.cpu().numpy()] = True
+            self.before = dict(tss.LAUNCHES)
+
+        def on_round_end(self, ctx):
+            grew = {n: tss.LAUNCHES[n] - self.before[n] for n in tss.LAUNCHES}
+            if grew != {"score_stats": 1, "score_select": 1, "score_probs": 0,
+                        "segment_probs": 0}:
+                raise AssertionError(f"15a round {ctx.round_idx}: launches {grew}")
+            if not np.array_equal(ctx.mask, self.expected):
+                raise AssertionError(
+                    f"15a round {ctx.round_idx}: cohort {np.flatnonzero(ctx.mask)} != "
+                    f"plain selection {np.flatnonzero(self.expected)}")
+            print(f"15a round {ctx.round_idx}: cohort {np.flatnonzero(ctx.mask).tolist()} "
+                  f"== plain; train_loss {ctx.train_loss:.4f} accuracy {ctx.metric:.4f}",
+                  flush=True)
+
+    def large_k(hooks):
+        return FederatedSpec(model, fed, data, selector="heterosel_pallas", steps_per_round=4,
+                             executor="batched", device=dev, noise=noise,
+                             hooks=hooks).build()
+
+    tel = TelemetryHook()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = large_k([tel, CheckRound()])
+    res_a = eng.run()
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    paths["large_k"] = launch_counts()
+    peak_a = torch.cuda.max_memory_allocated(dev)
+    if paths["large_k"] != {"score_stats": fed.rounds, "score_select": fed.rounds,
+                            "score_probs": 0, "segment_probs": 0,
+                            "sharded_score_select": 0, "flash_attention": 0,
+                            "grouped_matmul": 0, "ssd_chunk": 0}:
+        raise AssertionError(f"15a launches {paths['large_k']}")
+    finite("15a", res_a)
+    events = tel.recorder.events
+    gap_a = check_spans("15a", res_a, events, {"select_ms": ("select",),
+                                                "execute_ms": ("execute",),
+                                                "aggregate_ms": ("aggregate",)})
+    res_bare = large_k([]).run()
+    diff = same_run(res_a, res_bare)
+    if diff:
+        raise AssertionError(f"15a: the run with TelemetryHook differs from the bare run "
+                             f"on {diff[:6]}")
+    rows = tel.registry.rounds
+    print(f"phase 15a: resnet18-cifar10 ({n_params} params), lazy data K={fed.num_clients} "
+          f"m={LARGE_M} chunk {LARGE_CHUNK}, {fed.rounds} rounds x 4 steps x batch "
+          f"{fed.local_batch}, wall {wall_a:.2f} s, peak {peak_a} bytes; "
+          f"{len(events)} trace events, spans == *_ms within {gap_a:.3e} ms; params and "
+          "histories bitwise equal without the hook", flush=True)
+    for t in range(fed.rounds):
+        print(f"  round {t}: select_ms {res_a.select_ms[t]:.3f}  execute_ms "
+              f"{res_a.execute_ms[t]:.3f}  aggregate_ms {res_a.aggregate_ms[t]:.3f}  "
+              f"eval_ms {res_a.eval_ms[t]:.3f}  part_gini {rows[t]['part_gini']:.4f}  "
+              f"score_value {rows[t]['score_value']:.4f}", flush=True)
+    print(f"  launches {json.dumps(paths['large_k'])}", flush=True)
+    # K1 and K2 at K = 2048 on the run's final state (f32): the kernels line.
+    t_last = fed.rounds
+    scfg = HeteRoScoreConfig()
+    blk, nblocks, kpad = tss._layout(LARGE_K)
+    stacked = tss._pack(score_inputs(eng.state), None, LARGE_K, kpad)
+    glob = tss._combine_stats(tss.score_stats_plain(stacked, k=LARGE_K, block=blk))
+    gpad = torch.nn.functional.pad(noise(t_last, LARGE_K), (0, kpad - LARGE_K))
+    kw3 = dict(k=LARGE_K, block=blk, t=float(t_last),
+               tau=float(dynamic_temperature(t_last, sel_cfg)), use_ov=False,
+               decay=float(diversity_decay(t_last, scfg)), cfg=scfg)
+    timing = k1_k2_timing(stacked, glob, gpad, LARGE_K, LARGE_M, kw3, 200)
+    timing["case"] = "phase 15a path"
+    print("timing " + json.dumps(timing), flush=True)
+    numbers["k1_k2_timing"] = timing
+    numbers["large_k"] = {"wall_s": wall_a, "trace_events": len(events),
+                          "span_gap_ms": gap_a, "peak_bytes": peak_a,
+                          "select_ms": res_a.select_ms.tolist(),
+                          "execute_ms": res_a.execute_ms.tolist(),
+                          "aggregate_ms": res_a.aggregate_ms.tolist(),
+                          "eval_ms": res_a.eval_ms.tolist()}
+    del eng, res_a, res_bare, data, stacked
+    release(dev)
+
+    # 15b ------------------------------------------------------------------
+    fed_b = FedConfig(num_clients=12, participation=0.5, rounds=P15_ROUNDS, local_batch=32,
+                      lr=0.01, mu=0.1, dirichlet_alpha=0.1, seed=0)
+    built = make_scenario("drift", drift_period=1).build(fed_b)
+    tel = TelemetryHook()
+    eng_b = FederatedSpec(model, fed_b, built.data, selector="heterosel_pallas",
+                          steps_per_round=4, executor="batched", compression="int8",
+                          aggregator="fedavgm", hooks=[tel, *built.hooks], device=dev,
+                          noise=noise).build()
+    seen = watch_first_round(eng_b.executor)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res_b = eng_b.run()
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    int8_gap = check_int8_round(seen)
+    initial = seen["anchor"]   # round 0's anchor: the initial weights
+    moved = sum(int((res_b.params[k] != initial[k]).sum()) for k in initial)
+    if moved == 0:
+        raise AssertionError("15b: the compressed federation left every parameter unchanged")
+    paths["drift"] = launch_counts()
+    if paths["drift"] != {"score_stats": fed_b.rounds, "score_select": fed_b.rounds,
+                          "score_probs": 0, "segment_probs": 0, "sharded_score_select": 0,
+                          "flash_attention": 0, "grouped_matmul": 0, "ssd_chunk": 0}:
+        raise AssertionError(f"15b launches {paths['drift']}")
+    finite("15b", res_b)
+    gap_b = check_spans("15b", res_b, tel.recorder.events,
+                        {"select_ms": ("select",), "execute_ms": ("execute",),
+                         "aggregate_ms": ("aggregate",)})
+    report, summary = StabilityReport.from_result(res_b), res_b.summary()
+    if (report.peak, report.final, report.stable, report.stability_drop) != (
+            summary["peak_acc"], summary["final_acc"], summary["stable_acc"],
+            summary["stability_drop"]) or \
+            StabilityReport.from_registry(tel.registry).summary() != report.summary():
+        raise AssertionError(f"15b: StabilityReport {report.summary()} != summary {summary}")
+    if built.data.current_shift() != (fed_b.rounds - 1) * 3 % 10:
+        raise AssertionError(f"15b: drift shift {built.data.current_shift()}")
+    ratio = res_b.raw_bytes / res_b.wire_bytes
+    if not ratio > 3.9:
+        raise AssertionError(f"15b: raw / wire bytes {ratio}")
+    print(f"phase 15b: phase 3's federation under 'drift' (period 1), int8 over the "
+          f"batched executor, FedAvgM, {fed_b.rounds} rounds, wall {wall_b:.2f} s; "
+          f"raw_bytes / wire_bytes = {res_b.raw_bytes} / {res_b.wire_bytes} = {ratio:.4f}; "
+          f"round 0's int8 stack == the plain per-client codec, its mean within "
+          f"{int8_gap:.3e}; {moved} of {sum(v.numel() for v in initial.values())} "
+          f"parameters moved; "
+          f"StabilityReport == summary() {json.dumps(report.summary())}; "
+          f"spans == *_ms within {gap_b:.3e} ms", flush=True)
+    print(f"  launches {json.dumps(paths['drift'])}", flush=True)
+    numbers["drift"] = {"wall_s": wall_b, "raw_bytes": res_b.raw_bytes, "int8_mean_gap": int8_gap,
+                        "wire_bytes": res_b.wire_bytes, "ratio": ratio,
+                        "stability": report.summary(), "trace_events": len(tel.recorder.events)}
+    del res_b, eng_b, built, initial, seen
+    release(dev)
+
+    # 15c ------------------------------------------------------------------
+    fed_c = FedConfig(num_clients=24, participation=0.5, rounds=P15_ROUNDS, local_batch=32,
+                      lr=0.01, mu=0.1, dirichlet_alpha=0.1, seed=0,
+                      topology="hierarchical", edge_count=4)
+    from repro_torch.data import make_vision_data
+
+    built = make_scenario("churn").build(fed_c)
+    tel = TelemetryHook()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res_c = FederatedSpec(model, fed_c, make_vision_data(fed_c), selector="heterosel_pallas",
+                          steps_per_round=4, executor="batched", device=dev,
+                          hier_cfg=HierarchyConfig(edges_per_round=3), hooks=[tel],
+                          **built.spec_kwargs()).build().run()
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    paths["churn"] = launch_counts()
+    if paths["churn"] != {"score_stats": 0, "score_select": 0, "score_probs": 0,
+                          "segment_probs": fed_c.rounds, "sharded_score_select": 0,
+                          "flash_attention": 0, "grouped_matmul": 0, "ssd_chunk": 0}:
+        raise AssertionError(f"15c launches {paths['churn']}")
+    finite("15c", res_c)
+    if (res_c.selected_history & ~built.availability).any():
+        raise AssertionError("15c: an offline client was selected")
+    events = tel.recorder.events
+    gap_c = check_spans("15c", res_c, events,
+                        {"select_ms": ("outer_select", "inner_select"),
+                         "execute_ms": ("execute",), "aggregate_ms": ("aggregate",)})
+    n_edge = len(span_ms(events, "edge_execute"))
+    if n_edge != int(res_c.cloud_uploads.sum()):
+        raise AssertionError(f"15c: {n_edge} edge_execute spans, uploads {res_c.cloud_uploads}")
+    print(f"phase 15c: phase 4's hierarchical federation under 'churn', {fed_c.rounds} "
+          f"rounds, wall {wall_c:.2f} s; selected per round "
+          f"{res_c.selected_history.sum(1).tolist()} (online "
+          f"{built.availability.sum(1).tolist()}), uploads {res_c.cloud_uploads.tolist()}; "
+          f"outer_select + inner_select == select_ms within {gap_c:.3e} ms, "
+          f"{n_edge} edge_execute spans", flush=True)
+    print(f"  launches {json.dumps(paths['churn'])}", flush=True)
+    numbers["churn"] = {"wall_s": wall_c, "trace_events": len(events),
+                        "selected": res_c.selected_history.sum(1).tolist()}
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 15: {numbers['phase_s']:.1f} s in its process", flush=True)
+    return {"paths": paths, "numbers": numbers}
+
+
+def phase_async_child(dev) -> dict:
+    """Phase 13 as a child returns it: its launch counts by path and K4's error."""
+    err = {"segment_probs": 0.0}
+    flat, hier = phase_async(dev, err)
+    return {"paths": {"async": flat, "async_hierarchical": hier},
+            "segment_probs_err": err["segment_probs"]}
+
+
+# The phases that run in a child process of this script: with the cuBLAS
+# workspace setting that deterministic algorithms require (cuBLAS reads it
+# when a handle is made), so phases 1-12 run with the default, and with the
+# card's memory free. A child reuses the kernels built on disk.
+CHILD_PHASES = {13: phase_async_child, 14: phase_serving, 15: phase_telemetry}
+
+
+def run_child_phase(n: int) -> dict:
+    """Phase ``n`` of CHILD_PHASES in a child process (``chip_smoke.py
+    --phase-N OUT``); returns what its function returned, through OUT."""
     import tempfile
 
-    fd, out = tempfile.mkstemp(prefix="chip_smoke_phase14_", suffix=".json")
+    fd, out = tempfile.mkstemp(prefix=f"chip_smoke_phase{n}_", suffix=".json")
     os.close(fd)
     try:
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phase-14",
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), f"--phase-{n}",
                                out], env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
         if proc.returncode != 0:
-            raise RuntimeError(f"phase 14's process exited with {proc.returncode}")
+            raise RuntimeError(f"phase {n}'s process exited with {proc.returncode}")
         with open(out) as f:
             got = json.load(f)
     finally:
         os.unlink(out)
-    print(f"phase 14: its process took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase {n}: its process took {time.perf_counter() - t0:.1f} s", flush=True)
     return got
-
-
-def phase_serving_child(out: str) -> int:
-    """The child of ``run_phase_serving``: phase 14, its result into ``out``."""
-    from repro_torch.device import resolve_device
-
-    got = phase_serving(resolve_device("cuda"))
-    with open(out, "w") as f:
-        json.dump(got, f)
-    return 0
 
 
 def main() -> int:
@@ -2832,10 +3169,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--phase-13"]:
-        return phase_async_child(sys.argv[2])
-    if sys.argv[1:2] == ["--phase-14"]:
-        return phase_serving_child(sys.argv[2])
+    child = {f"--phase-{n}": fn for n, fn in CHILD_PHASES.items()}.get(next(iter(sys.argv[1:]), None))
+    if child is not None:
+        from repro_torch.device import resolve_device
+
+        got = child(resolve_device("cuda"))
+        with open(sys.argv[2], "w") as f:
+            json.dump(got, f)
+        return 0
     from repro_torch.configs import expert_share, get_config
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
@@ -2939,12 +3280,18 @@ def main() -> int:
     paths["vlm"], vlm_gap = phase_visit(dev, 12, cfg, VLM_BATCH, gates=VLM_GATE)
     release(dev)
     lap(12)
-    paths["async"], paths["async_hierarchical"] = run_phase_async(err)
+    asynchronous = run_child_phase(13)
+    paths.update(asynchronous["paths"])
+    err["segment_probs"] = max(err["segment_probs"], asynchronous["segment_probs_err"])
     release(dev)
     lap(13)
-    serving = run_phase_serving()
+    serving = run_child_phase(14)
     paths.update(serving["paths"])
     lap(14)
+    telemetry = run_child_phase(15)
+    paths.update(telemetry["paths"])
+    timings.append(telemetry["numbers"]["k1_k2_timing"])
+    lap(15)
 
     def launches(name):
         by_path = {p: counts[name] for p, counts in paths.items()}

@@ -7,7 +7,11 @@ Gumbel-top-m. Baselines (paper Sec V): ``random`` (uniform, FedAvg),
 ``oort`` (statistical × system utility with an explore split). ``adaptive``
 (heterogeneity-guided sampling, arXiv:2310.00198) rescales the softmax
 temperature by the observed spread of client losses; the hierarchical
-engine pairs it with ``core.adaptive.AdaptiveBudgets``.
+engine pairs it with ``core.adaptive.AdaptiveBudgets``. ``filtered`` /
+``filtered:<base>`` (FilFL-style pre-selection filtering,
+arXiv:2302.06599) prunes the candidate pool to the top keep_frac·K clients
+by optimistic utility before the base selector's probabilities are
+re-sampled inside it.
 
 torch cannot reproduce ``jax.random``, so every selector takes its random
 draws as its first argument: ``(draws, state, round_idx) ->
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Callable, Mapping, Optional, Tuple, Union
 
 import torch
@@ -53,6 +58,10 @@ class SelectorConfig:
     # Score + softmax + sampling through the fused kernels
     # (kernels.score_select); additive form only.
     use_fused_kernel: bool = False
+    # 'filtered' pre-selection stage (FilFL): keep ceil(keep_frac·K) clients
+    # (never fewer than m) by optimistic loss + diversity before scoring.
+    filter_keep_frac: float = 0.5
+    filter_diversity_coef: float = 0.5
     # 'adaptive' temperature controller: τ ← τ(t)·clip(1 + gain·(cv − ref),
     # scale_min, scale_max), cv the observed-loss coefficient of variation
     # (no observation yet ⇒ scale 1, plain heterosel).
@@ -76,18 +85,28 @@ POC_JITTER = 1e-6   # Power-of-Choice's tie-breaking jitter is U[0, POC_JITTER)
 # ``uniform(kt, (K,), f32, 0, 1e-6)``, selection.py:194); "remask", the
 # standard Gumbel row of the availability re-sample (``fed.availability``;
 # the reference's ``gumbel(fold_in(key, 1), (K,))``), drawn only when a run
-# has an availability trace.
+# has an availability trace; "pool", the standard Gumbel row of the
+# ``filtered`` selectors' re-sample inside the pool (the reference's
+# ``gumbel(fold_in(key, 1), (K,))`` too, so under an availability trace the
+# reference draws one row for both).
 DRAW_NAMES = {
     "gumbel": gumbel_noise,
     "jitter": lambda gen, k: POC_JITTER * torch.rand(k, generator=gen, device=gen.device),
     "remask": gumbel_noise,
+    "pool": gumbel_noise,
 }
 # Selectors that take more than the one Gumbel row, and the names they take.
 SELECTOR_DRAWS = {"power_of_choice": ("gumbel", "jitter")}
 
 
+def _is_filtered(name: str) -> bool:
+    return name == "filtered" or name.startswith("filtered:")
+
+
 def selector_draws(name: str) -> Tuple[str, ...]:
     """The names of the draws selector ``name`` takes each round."""
+    if _is_filtered(name):
+        return ("gumbel", "pool")
     return SELECTOR_DRAWS.get(name, ("gumbel",))
 
 
@@ -294,6 +313,84 @@ def adaptive_select(
     return sample_clients(gumbel, probs, sel_cfg.num_selected), probs
 
 
+# ---------------------------------------------------------------------------
+# FilFL-style pre-selection filtering (arXiv:2302.06599)
+# ---------------------------------------------------------------------------
+
+
+def filter_pool_size(num_clients: int, sel_cfg: SelectorConfig) -> int:
+    """Static pool size: ceil(keep_frac·K), never below m, never above K."""
+    n_keep = math.ceil(sel_cfg.filter_keep_frac * num_clients)
+    return min(max(n_keep, sel_cfg.num_selected), num_clients)
+
+
+def filter_pool(state: ClientState, sel_cfg: SelectorConfig) -> torch.Tensor:
+    """(K,) bool — the surviving candidate pool (reference
+    ``core/selection.py:256``).
+
+    Utility is the optimistic local loss (unobserved clients get max + 1, so
+    exploration is never filtered away) plus ``filter_diversity_coef`` × the
+    label divergence; the top ``filter_pool_size`` by utility survive, ties
+    to the smaller id. Deterministic given the state.
+    """
+    n_keep = filter_pool_size(state.num_clients, sel_cfg)
+    opt_loss = torch.where(state.has_loss > 0, state.loss_prev,
+                           torch.max(state.loss_prev) + 1.0)
+    util = opt_loss + sel_cfg.filter_diversity_coef * state.label_js
+    pool = torch.zeros(state.num_clients, dtype=torch.bool, device=state.device)
+    pool[_topk_first(util, n_keep)] = True
+    return pool
+
+
+def pool_resample(gumbel: torch.Tensor, probs: torch.Tensor, pool: torch.Tensor,
+                  m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Renormalize ``probs`` onto ``pool`` and Gumbel-top-m sample inside it
+    (reference ``_pool_resample``, :275).
+
+    Pruned clients get a hard −inf perturbed score (a probability floor is
+    not enough: softmax underflow plus Gumbel ties could leak one through
+    the top-m). The pool holds ≥ m members, so exactly m pool clients are
+    selected. ``gumbel`` is the ``"pool"`` draw.
+    """
+    probs = torch.where(pool, probs, 0.0)
+    norm = torch.sum(probs)
+    uniform_pool = pool.to(probs.dtype) / torch.clamp_min(torch.sum(pool), 1)
+    probs = torch.where(norm > 1e-9, probs / torch.clamp_min(norm, 1e-9), uniform_pool)
+    perturbed = torch.where(pool, _log(probs + 1e-30) + gumbel.to(probs.device), -torch.inf)
+    mask = torch.zeros_like(pool)
+    mask[_topk_first(perturbed, m)] = True
+    return mask & pool, probs
+
+
+# Scoring bases the filtering stage composes with. power_of_choice is
+# excluded: its ``probs`` are a candidate-set diagnostic, not a scoring
+# distribution to renormalize. heterosel_pallas is excluded because the
+# fused kernel samples in-kernel: filtering would discard its cohort and
+# re-sample on the host.
+FILTER_BASES = ("heterosel", "heterosel_mult", "random", "oort")
+
+
+def base_selector_name(name: str) -> str:
+    """'filtered:<base>' → '<base>'; 'filtered' → 'heterosel'; else name.
+
+    The hierarchical engine takes the outer stage's semantics (uniform or
+    pooled HeteRo scoring) from it for composite names.
+    """
+    if name == "filtered":
+        return "heterosel"
+    if name.startswith("filtered:"):
+        return name.split(":", 1)[1]
+    return name
+
+
+def _filter_base(name: str) -> str:
+    base = base_selector_name(name)
+    if base not in FILTER_BASES:
+        raise ValueError(
+            f"filtered selector cannot wrap '{base}': valid bases are {FILTER_BASES}")
+    return base
+
+
 def edge_selection_probs(pooled_state: ClientState, round_idx,
                          sel_cfg: SelectorConfig,
                          score_cfg: HeteRoScoreConfig) -> torch.Tensor:
@@ -306,10 +403,16 @@ def edge_selection_probs(pooled_state: ClientState, round_idx,
     return selection_probabilities(scores, dynamic_temperature(round_idx, sel_cfg))
 
 
-# Names make_selector serves: the paper's five (Table I), the fused-kernel
-# heterosel and 'adaptive'. The reference's 'filtered' is not ported.
+# Names make_selector serves, the reference's: the paper's five (Table I),
+# the fused-kernel heterosel, 'filtered' (plus 'filtered:<base>') and
+# 'adaptive'.
 SELECTORS = ("heterosel", "heterosel_pallas", "heterosel_mult", "random",
-             "power_of_choice", "oort", "adaptive")
+             "power_of_choice", "oort", "filtered", "adaptive")
+
+
+def _unknown(name: str) -> ValueError:
+    return ValueError(f"unknown selector '{name}': valid names are {SELECTORS} "
+                      f"(plus 'filtered:<base>' for base in {FILTER_BASES})")
 
 
 def make_selector(name: str, sel_cfg: SelectorConfig,
@@ -317,8 +420,21 @@ def make_selector(name: str, sel_cfg: SelectorConfig,
                   speeds: Optional[torch.Tensor] = None) -> SelectFn:
     """Factory over ``SELECTORS``. ``heterosel_pallas`` is the name the
     reference gives its fused-kernel branch; here it runs the CUDA kernels.
+    ``'filtered'`` wraps heterosel and ``'filtered:<base>'`` any name in
+    ``FILTER_BASES``: the base's probabilities are renormalized onto the
+    surviving pool and the cohort drawn inside it from the ``"pool"`` row
+    (the base's own cohort, from the ``"gumbel"`` row, is discarded).
     ``speeds`` (K,) enables Oort's system-utility term."""
     score_cfg = score_cfg or HeteRoScoreConfig()
+    if _is_filtered(name):
+        base = make_selector(_filter_base(name), sel_cfg, score_cfg, speeds=speeds)
+
+        def filtered(draws, state, round_idx):
+            _, probs = base(named_draw(draws, "gumbel"), state, round_idx)
+            return pool_resample(named_draw(draws, "pool"), probs,
+                                 filter_pool(state, sel_cfg), sel_cfg.num_selected)
+
+        return filtered
     if name == "heterosel":
         return functools.partial(heterosel_select, sel_cfg=sel_cfg, score_cfg=score_cfg)
     if name == "heterosel_pallas":
@@ -335,8 +451,7 @@ def make_selector(name: str, sel_cfg: SelectorConfig,
         return functools.partial(oort_select, sel_cfg=sel_cfg, speeds=speeds)
     if name == "adaptive":
         return functools.partial(adaptive_select, sel_cfg=sel_cfg, score_cfg=score_cfg)
-    raise ValueError(f"unknown or not yet ported selector '{name}': the port "
-                     f"serves {SELECTORS}")
+    raise _unknown(name)
 
 
 def make_async_selector(name: str, sel_cfg: SelectorConfig,
@@ -352,9 +467,19 @@ def make_async_selector(name: str, sel_cfg: SelectorConfig,
     term read it instead of the round counter; ``heterosel_pallas`` hands it
     to K1 + K2 as the override row (``kernels.ops.heterosel_topm``, the
     kernel's ``use_ov``). ``random`` and ``power_of_choice`` have no
-    freshness term and ignore it.
+    freshness term and ignore it. ``filtered`` hands it to its base for
+    scoring; the pool itself depends only on the staleness-free utility.
     """
     score_cfg = score_cfg or HeteRoScoreConfig()
+    if _is_filtered(name):
+        base = make_async_selector(_filter_base(name), sel_cfg, score_cfg, speeds=speeds)
+
+        def filtered_async(draws, state, round_idx, stale):
+            _, probs = base(named_draw(draws, "gumbel"), state, round_idx, stale)
+            return pool_resample(named_draw(draws, "pool"), probs,
+                                 filter_pool(state, sel_cfg), sel_cfg.num_selected)
+
+        return filtered_async
     if name in ("heterosel", "heterosel_mult", "heterosel_pallas", "adaptive"):
         base = make_selector(name, sel_cfg, score_cfg)
 
@@ -376,5 +501,4 @@ def make_async_selector(name: str, sel_cfg: SelectorConfig,
             return base(draws, state, round_idx)
 
         return stateless_async
-    raise ValueError(f"unknown or not yet ported selector '{name}': the port "
-                     f"serves {SELECTORS}")
+    raise _unknown(name)

@@ -1,5 +1,7 @@
 """Synthetic federated data, as in ``repro.data.synthetic``: vision (a
-CIFAR-10 stand-in) and language modelling (per-client bigram "dialects"),
+CIFAR-10 stand-in; at cross-device scale lazily materialized, and with a
+label skew that drifts mid-run) and language modelling (per-client bigram
+"dialects"),
 and the model inputs of each (architecture, input shape) as empty tensors
 on the meta device (``input_specs``).
 
@@ -95,6 +97,175 @@ def make_vision_data(
         label_js=client_label_js(dists),
         test_images=test_images, test_labels=test_labels,
     )
+
+
+# ---------------------------------------------------------------------------
+# Vision at cross-device scale: lazily materialized label-skew federation
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class LazyVisionFedData:
+    """K=10⁴-scale label-skew federation, materialized lazily per round.
+
+    Nothing per-sample is stored: each client k exists only as a row of
+    ``label_dists`` (its Dirichlet label distribution). Batches are
+    synthesized on demand — labels drawn from the client's distribution,
+    pixels from the shared class templates + client-seeded noise — so memory
+    is O(K·C + C·H·W), not O(N·H·W). ``stacked_client_batches`` emits the
+    whole selected cohort in one vectorized numpy pass with a leading (M,)
+    client axis, which the batched executor takes (``fed.batched``).
+    """
+
+    templates: np.ndarray       # (C, H, W, 3) shared class templates
+    label_dists: np.ndarray     # (K, C) per-client Dirichlet label dist
+    label_js: np.ndarray        # (K,) JS(P_k || P_avg)
+    noise: float
+    test_images: np.ndarray
+    test_labels: np.ndarray
+
+    @property
+    def num_clients(self) -> int:
+        return self.label_dists.shape[0]
+
+    def _synthesize(self, labels: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+        imgs = self.templates[labels] + self.noise * rng.standard_normal(
+            labels.shape + self.templates.shape[1:], dtype=np.float32)
+        return imgs.astype(np.float32)
+
+    def _sample_labels(self, ks: np.ndarray, n: int,
+                       rng: np.random.Generator) -> np.ndarray:
+        """(len(ks), n) labels, row i drawn from client ks[i]'s distribution."""
+        cdf = np.cumsum(self.label_dists[np.asarray(ks, np.int64)], axis=1)
+        u = rng.random((len(ks), n, 1))
+        return (u > cdf[:, None, :]).sum(axis=2).astype(np.int32)
+
+    def client_batches(self, k: int, steps: int, batch: int,
+                       rng: np.random.Generator) -> Dict[str, torch.Tensor]:
+        labels = self._sample_labels(np.asarray([k]), steps * batch, rng)[0]
+        imgs = self._synthesize(labels, rng)
+        h, w = self.templates.shape[1], self.templates.shape[2]
+        return {"images": torch.from_numpy(imgs.reshape(steps, batch, h, w, 3)),
+                "labels": torch.from_numpy(labels.reshape(steps, batch))}
+
+    def stacked_client_batches(self, selected: np.ndarray, steps: int, batch: int,
+                               rng: np.random.Generator) -> Dict[str, torch.Tensor]:
+        """One cohort in one pass: leaves shaped (M, steps, batch, ...)."""
+        sel = np.asarray(selected)
+        m, n = len(sel), steps * batch
+        labels = self._sample_labels(sel, n, rng)          # (M, n)
+        imgs = self._synthesize(labels, rng)               # (M, n, H, W, 3)
+        h, w = self.templates.shape[1], self.templates.shape[2]
+        return {"images": torch.from_numpy(imgs.reshape(m, steps, batch, h, w, 3)),
+                "labels": torch.from_numpy(labels.reshape(m, steps, batch))}
+
+    def eval_batch(self) -> Dict[str, torch.Tensor]:
+        return {"images": torch.from_numpy(self.test_images),
+                "labels": torch.from_numpy(self.test_labels)}
+
+
+def make_lazy_vision_data(
+    fed: FedConfig,
+    *,
+    num_classes: int = 10,
+    image_size: int = 32,
+    test_per_class: int = 16,
+    noise: float = 0.8,
+    seed: int | None = None,
+) -> LazyVisionFedData:
+    """Label-skew federation with ``fed.num_clients`` lazily backed clients.
+
+    Each client's label distribution is drawn directly from Dir(α): the same
+    skew model at unbounded K with no per-sample storage (K=10⁴ costs ~K·C
+    floats of state, < 1 MB).
+    """
+    seed = fed.seed if seed is None else seed
+    rng = np.random.default_rng(seed)
+    templates = _class_templates(rng, num_classes, image_size).astype(np.float32)
+    dists = rng.dirichlet(
+        np.full(num_classes, fed.dirichlet_alpha), size=fed.num_clients
+    ).astype(np.float64)
+    test_labels = np.repeat(np.arange(num_classes), test_per_class).astype(np.int32)
+    test_images = (
+        templates[test_labels]
+        + noise * rng.standard_normal(
+            (len(test_labels), image_size, image_size, 3), dtype=np.float32)
+    ).astype(np.float32)
+    return LazyVisionFedData(
+        templates=templates, label_dists=dists, label_js=client_label_js(dists),
+        noise=noise, test_images=test_images, test_labels=test_labels)
+
+
+# ---------------------------------------------------------------------------
+# Label-distribution drift: skew that rotates mid-run (fed/scenarios.py)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class DriftingVisionFedData(LazyVisionFedData):
+    """Label-skew federation whose per-client skew *rotates* during the run.
+
+    Every ``drift_period`` rounds each client's Dirichlet label distribution
+    is rolled ``drift_shift`` classes along the class axis: its shape (and
+    so its label_js divergence) is kept, but which classes a client favours
+    changes, so selection metadata learned before a drift boundary goes
+    stale. ``fed.scenarios.LabelDriftHook`` calls :meth:`set_round` at every
+    round start and batch sampling reads the rotated distributions.
+
+    Batches are a pure function of the engine's (checkpointed) numpy stream
+    and the round index, so drifted runs stay seed-deterministic and resume
+    bitwise. ``label_js`` stays the round-0 snapshot: rolling a distribution
+    leaves its divergence from the permutation-symmetric average unchanged.
+    """
+
+    drift_period: int = 10
+    drift_shift: int = 1
+    _round: int = 0
+
+    def __post_init__(self):
+        if self.drift_period < 1:
+            raise ValueError("drift_period must be >= 1")
+
+    def set_round(self, round_idx: int) -> None:
+        """Position the drift clock; idempotent, called by LabelDriftHook."""
+        self._round = int(round_idx)
+
+    def current_shift(self) -> int:
+        num_classes = self.label_dists.shape[1]
+        return ((self._round // self.drift_period) * self.drift_shift) % num_classes
+
+    def current_label_dists(self) -> np.ndarray:
+        """(K, C) distributions in effect at the current round."""
+        return np.roll(self.label_dists, self.current_shift(), axis=1)
+
+    def _sample_labels(self, ks: np.ndarray, n: int,
+                       rng: np.random.Generator) -> np.ndarray:
+        cdf = np.cumsum(self.current_label_dists()[np.asarray(ks, np.int64)], axis=1)
+        u = rng.random((len(ks), n, 1))
+        return (u > cdf[:, None, :]).sum(axis=2).astype(np.int32)
+
+
+def make_drifting_vision_data(
+    fed: FedConfig,
+    *,
+    drift_period: int = 10,
+    drift_shift: int = 3,
+    num_classes: int = 10,
+    image_size: int = 32,
+    test_per_class: int = 16,
+    noise: float = 0.8,
+    seed: int | None = None,
+) -> DriftingVisionFedData:
+    """``make_lazy_vision_data`` whose label skew rotates every
+    ``drift_period`` rounds (the 'drift' scenario, ``fed.scenarios``)."""
+    base = make_lazy_vision_data(
+        fed, num_classes=num_classes, image_size=image_size,
+        test_per_class=test_per_class, noise=noise, seed=seed)
+    return DriftingVisionFedData(
+        templates=base.templates, label_dists=base.label_dists,
+        label_js=base.label_js, noise=base.noise, test_images=base.test_images,
+        test_labels=base.test_labels, drift_period=drift_period,
+        drift_shift=drift_shift)
 
 
 # ---------------------------------------------------------------------------

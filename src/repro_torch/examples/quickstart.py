@@ -39,7 +39,7 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=15)
     ap.add_argument("--selector", default="heterosel", metavar="NAME",
-                    help=f"one of {', '.join(SELECTORS)}")
+                    help=f"one of {', '.join(SELECTORS)}, or filtered:<base>")
     ap.add_argument("--executor", "--client-execution", dest="executor",
                     default=None, choices=["batched", "sequential"],
                     help="override FedConfig.client_execution")

@@ -262,15 +262,16 @@ class AsyncFederatedEngine(FederatedEngine):
 
     def _require_per_client_updates(self) -> None:
         """Async needs each client's update separately (deltas, held back)."""
-        if getattr(self.executor, "kind", None) == "batched":
+        inner = getattr(self.executor, "inner", self.executor)  # CompressedExecutor
+        if getattr(inner, "kind", None) == "batched":
             if self.spec.fed.client_chunk:
                 raise ExecutorCompatError(
                     "async rounds need every client's update separately, but "
                     "chunked batched execution (FedConfig.client_chunk > 0) "
                     "never materializes the (M, ...) client stack; set "
                     "client_chunk=0 or use the sequential executor")
-            if isinstance(self.executor, BatchedExecutor):
-                self.executor.keep_client_params = True
+            if isinstance(inner, BatchedExecutor):
+                inner.keep_client_params = True
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -324,6 +325,8 @@ class AsyncFederatedEngine(FederatedEngine):
                     else np.asarray(torch.as_tensor(weights).cpu(), np.float64))
             cohort = self.executor.run_round(self.params, selected, self.rng,
                                              weights=None)
+            self.wire_total += cohort.wire_bytes
+            self.raw_total += cohort.raw_bytes
             lat = self.latency.sample(selected, self.rng)
             losses = np.asarray(torch.as_tensor(cohort.mean_loss).cpu(), np.float32)
             sqnorms = np.asarray(torch.as_tensor(cohort.update_sqnorm).cpu(), np.float32)
@@ -387,6 +390,10 @@ class AsyncFederatedEngine(FederatedEngine):
         ctx.num_arrivals = len(kept)
         ctx.num_stragglers = n_stragglers
         self._eval(ctx, eval_batch)
+        self._trace_round(t, ("select", t0, t1, {}),
+                          ("execute", t1, t2, {"dispatched": int(len(selected))}),
+                          ("aggregate", t2, t3, {"arrivals": int(len(kept)),
+                                                 "stragglers": n_stragglers}))
         ctx.train_loss = (float(np.mean([ev.payload.loss for ev in kept]))
                           if kept else 0.0)
         self._rounds_done = t + 1

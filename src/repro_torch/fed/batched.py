@@ -31,9 +31,14 @@ def gather_stacked_batches(data: Any, selected: np.ndarray, steps: int,
                            batch: int, rng: np.random.Generator) -> dict:
     """Stacked (M, steps, batch, ...) batches for the selected clients.
 
-    Draws client by client in ``selected`` order (ascending ids), consuming
-    the host RNG exactly as the reference does.
+    Takes the data source's vectorized ``stacked_client_batches`` where it
+    has one (the lazy large-K generators make the whole cohort in one numpy
+    pass); otherwise draws client by client in ``selected`` order (ascending
+    ids). Either way the host RNG is consumed exactly as the reference does.
     """
+    fn = getattr(data, "stacked_client_batches", None)
+    if fn is not None:
+        return fn(selected, steps, batch, rng)
     return stack_client_trees(
         [data.client_batches(int(k), steps, batch, rng) for k in selected])
 

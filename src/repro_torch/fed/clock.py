@@ -22,8 +22,10 @@ time axis for ``fed.async_engine``:
 The clock is host-side control plane, like the sequential parts of
 Algorithm 1: device work stays fused in the batched executor, and the clock
 only decides *when* each already-computed update reaches the server.
-Counterpart of ``repro.fed.clock`` without its telemetry instants (the
-port has no tracer yet).
+Counterpart of ``repro.fed.clock``. With a tracer attached (a
+``TelemetryHook`` sets ``VirtualClock.tracer``) every popped completion and
+channel arrival becomes an instant on the sim-time timeline; emission never
+changes the heap order, the seq numbering or ``state_dict``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ import heapq
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+
+from repro_torch.obs.trace import NULL_TRACER
 
 
 @dataclasses.dataclass(order=True)
@@ -73,6 +77,9 @@ class VirtualClock:
         self._heap: List[Completion] = []
         self._next_seq = 0  # plain int (not itertools.count): checkpointable
         self._channels: Dict[str, "ChannelQueue"] = {}
+        # Telemetry: popped events become sim-time instants. TelemetryHook
+        # re-attaches its recorder each round (restore replaces the clock).
+        self.tracer = NULL_TRACER
 
     def channel(self, name: str) -> "ChannelQueue":
         """Named side event queue sharing this clock's ``now``.
@@ -129,6 +136,7 @@ class VirtualClock:
         due: List[Completion] = []
         while self._heap and self._heap[0].time <= self.now:
             due.append(heapq.heappop(self._heap))
+        self._trace_completions(due)
         return due
 
     def drain(self) -> List[Completion]:
@@ -138,7 +146,15 @@ class VirtualClock:
             out.append(heapq.heappop(self._heap))
         if out:
             self.advance_to(out[-1].time)
+        self._trace_completions(out)
         return out
+
+    def _trace_completions(self, events: List[Completion]) -> None:
+        if self.tracer.enabled:
+            for ev in events:
+                self.tracer.instant(
+                    "completion", ev.time, track="completions",
+                    args={"client": ev.client, "dispatch_round": ev.dispatch_round})
 
     def pending(self) -> List[Completion]:
         """The pending events in ``(time, seq)`` order, without popping."""
@@ -226,6 +242,11 @@ class ChannelQueue:
         due: List[Completion] = []
         while self._heap and self._heap[0].time <= self.clock.now:
             due.append(heapq.heappop(self._heap))
+        tracer = self.clock.tracer
+        if tracer.enabled:
+            for ev in due:
+                tracer.instant("arrival", ev.time, track=f"channel:{self.name}",
+                               args={"tag": ev.client, "round": ev.dispatch_round})
         return due
 
     def pending(self) -> List[Completion]:

@@ -11,11 +11,23 @@ eval — and delegates each stage to a plugin:
     ``fed.async_engine``, ``BufferedAggregator`` ("fedbuff");
     ``cohort_weights`` runs before execution so the batched path folds the
     weights into its fused reduction.
+    ``CompressedExecutor`` wraps either and owns the codec state
+    (``fed.compression``: int8 over the stacked cohort, or top-k with
+    per-client error-feedback residuals).
   * ``RoundHook`` — ``MetricsHook`` (the series ``FLResult`` is built
-    from), ``VerboseHook`` (one line per round), ``AdaptiveMuHook``
-    (Lemma-A.4 μ retuning), ``CheckpointHook`` (mid-run checkpoint and
-    resume, ``repro_torch.ckpt``) and ``KillAtRound`` (a simulated
-    preemption). Hooks may be given by their ``HOOKS`` registry names.
+    from), ``VerboseHook`` (one line per round, from the shared
+    ``obs.MetricsRegistry``), ``AdaptiveMuHook`` (Lemma-A.4 μ retuning),
+    ``CheckpointHook`` (mid-run checkpoint and resume,
+    ``repro_torch.ckpt``), ``KillAtRound`` (a simulated preemption) and
+    ``obs.TelemetryHook`` (traces, per-round telemetry, the stability
+    report). Hooks may be given by their ``HOOKS`` registry names and run
+    in ``priority`` order, ``MetricsHook`` first.
+
+The engines hold a tracer (``obs.trace.NULL_TRACER`` until a
+``TelemetryHook`` swaps in a recorder). Each round's ``select``,
+``execute`` and ``aggregate`` spans are cut from the same clock readings as
+the ``FLResult.*_ms`` they mirror, so on a card each still ends in its
+device synchronize.
 
 Randomness comes from outside where the reference draws it with
 ``jax.random``: ``FederatedSpec.noise(round_idx, K)`` gives each round's
@@ -60,8 +72,11 @@ from repro_torch.device import resolve_device, synchronize
 from repro_torch.fed import availability as fed_avail
 from repro_torch.fed import batched as fed_batched
 from repro_torch.fed import client as fed_client
+from repro_torch.fed import compression as fed_comp
 from repro_torch.fed import server as fed_server
 from repro_torch.kernels._math import exp as _exp
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import NULL_TRACER
 
 # (round_idx, K) -> (K,) Gumbel row, or {name: (K,) row} (core.selection)
 NoiseFn = Callable[[int, int], Draws]
@@ -84,6 +99,8 @@ class FLResult:
     selection_counts: np.ndarray  # (K,)
     selected_history: np.ndarray  # (rounds, K) bool
     params: Any
+    wire_bytes: int = 0           # client→server traffic (compression on)
+    raw_bytes: int = 0
     metric_name: str = "accuracy"
     mu_history: Optional[np.ndarray] = None  # AdaptiveMuHook's μ per round
     # Async runs (fed.async_engine): the virtual close time of each round and
@@ -106,6 +123,10 @@ class FLResult:
     # aggregated. ``served_metric`` rows are (round, version, metric).
     serving: Optional[Dict[str, Any]] = None
     served_metric: Optional[np.ndarray] = None
+    # The telemetry plane (obs.TelemetryHook): the JSON-able registry
+    # snapshot (per-round fairness and communication rows, counters,
+    # histogram summaries), the stability summary and any artifact paths.
+    telemetry: Optional[Dict[str, Any]] = None
 
     @property
     def peak_acc(self) -> float:
@@ -178,6 +199,8 @@ class CohortUpdates:
     list in cohort order. The async engine aggregates arrivals:
     ``delta_list`` holds each update's f32 delta against the global version
     its client trained on and ``staleness`` the (M,) version lag.
+    ``wire_bytes`` / ``raw_bytes`` count the cohort's compressed and raw
+    upload (``CompressedExecutor``; 0 without compression).
     """
 
     mean_loss: Any
@@ -186,6 +209,8 @@ class CohortUpdates:
     param_list: Optional[List[Any]] = None
     stacked_params: Optional[Any] = None
     weights: Optional[Any] = None
+    wire_bytes: int = 0
+    raw_bytes: int = 0
     delta_list: Optional[List[Any]] = None
     staleness: Optional[np.ndarray] = None
 
@@ -206,7 +231,8 @@ class ClientExecutor(Protocol):
 
 
 class ExecutorCompatError(ValueError):
-    """An execution schedule that cannot serve the engine asked for."""
+    """An execution schedule (or a codec on it) that cannot serve the engine
+    asked for."""
 
 
 class Aggregator:
@@ -253,7 +279,14 @@ class RoundHook:
     ``on_run_end`` and ``contribute`` (extra fields for the result).
     ``state_dict`` / ``load_state_dict`` carry a hook's resumable state
     through ``CheckpointHook``, keyed by the hook's position in the list.
+
+    ``priority`` orders the list (higher first, a stable sort; the
+    ``MetricsHook`` is pinned first whatever its priority), so producers
+    such as ``TelemetryHook`` (10) precede the hooks that read their
+    registry, and a resumed run rebuilds the same order.
     """
+
+    priority = 0
 
     def on_run_start(self, ctx: "RoundContext") -> None:
         pass
@@ -412,6 +445,88 @@ class SequentialExecutor:
                              param_list=param_list, weights=weights)
 
 
+class CompressedExecutor:
+    """Wire-compression decorator around either executor (paper Sec II-B).
+
+    Compresses each client's delta Δ = w_k − w_global with the codec
+    (``fed.compression``), decodes it at once (the client→server wire), and
+    hands the cohort on in the standard layout, so any aggregator composes
+    downstream. Owns the codec state:
+
+      * ``'int8'`` — stateless per-tensor quantization. Over the batched
+        schedule it quantizes the (M, ...) client stack in one pass
+        (``quantize_int8_stacked``), which needs the stack: chunked
+        execution (``client_chunk > 0``) never materializes it and raises.
+      * ``'topk'`` — top-k sparsification with error feedback. The
+        per-client residuals live here (``residuals``, by client id) on the
+        host side, so the codec needs the sequential schedule and raises
+        ``ExecutorCompatError`` otherwise.
+    """
+
+    def __init__(self, inner: ClientExecutor, codec: str, topk_frac: float = 0.1):
+        if codec not in ("int8", "topk"):
+            raise ValueError(f"unknown compression codec {codec!r}")
+        if codec == "topk" and inner.kind != "sequential":
+            raise ExecutorCompatError(
+                "compression='topk' keeps per-client host-side error-feedback "
+                "residuals and requires the sequential executor; got "
+                f"{inner.kind!r}. Pass client_execution='sequential' (or an "
+                "explicit SequentialExecutor).")
+        if codec == "int8" and inner.kind == "batched":
+            if inner.fed.client_chunk:
+                raise ExecutorCompatError(
+                    "compression='int8' over the batched executor needs the "
+                    "full (M, ...) client stack, which chunked execution "
+                    "(FedConfig.client_chunk > 0) never materializes; set "
+                    "client_chunk=0 or use the sequential executor.")
+            inner.keep_client_params = True
+        self.inner = inner
+        self.kind = inner.kind
+        self.codec = codec
+        self.topk_frac = topk_frac
+        self.residuals: Dict[int, Any] = {}
+
+    def set_mu(self, mu: float) -> None:
+        self.inner.set_mu(mu)
+
+    def run_round(self, params, selected, rng, weights=None) -> CohortUpdates:
+        cohort = self.inner.run_round(params, selected, rng, weights=weights)
+        if cohort.param_list is not None:
+            return self._compress_list(params, selected, cohort)
+        return self._compress_stacked(params, cohort)
+
+    def _compress_list(self, anchor, selected, cohort: CohortUpdates) -> CohortUpdates:
+        wire = raw = 0
+        rebuilt: List[Any] = []
+        for i, k in enumerate(selected):
+            delta = fed_comp.tree_delta(cohort.param_list[i], anchor)
+            if self.codec == "int8":
+                c, stats = fed_comp.quantize_int8(delta)
+                decoded = fed_comp.dequantize_int8(c)
+            else:
+                c, resid, stats = fed_comp.topk_sparsify(
+                    delta, self.topk_frac, self.residuals.get(int(k)))
+                self.residuals[int(k)] = resid
+                decoded = fed_comp.desparsify(c)
+            wire += stats.wire_bytes
+            raw += stats.raw_bytes
+            rebuilt.append(fed_comp.tree_apply_delta(anchor, decoded))
+        return dataclasses.replace(cohort, param_list=rebuilt, wire_bytes=wire,
+                                   raw_bytes=raw)
+
+    def _compress_stacked(self, anchor, cohort: CohortUpdates) -> CohortUpdates:
+        if cohort.stacked_params is None:
+            raise ExecutorCompatError(
+                "batched executor returned no client stack to compress "
+                "(keep_client_params was not honoured)")
+        delta = fed_comp.tree_delta(cohort.stacked_params, anchor)  # broadcasts
+        c, stats = fed_comp.quantize_int8_stacked(delta)
+        rebuilt = fed_comp.tree_apply_delta(anchor, fed_comp.dequantize_int8_stacked(c))
+        avg = fed_server.fedavg_fused(rebuilt, cohort.weights)
+        return dataclasses.replace(cohort, avg_params=avg, stacked_params=rebuilt,
+                                   wire_bytes=stats.wire_bytes, raw_bytes=stats.raw_bytes)
+
+
 @register_executor("batched")
 def _make_batched(spec: "FederatedSpec") -> BatchedExecutor:
     return BatchedExecutor(spec)
@@ -520,20 +635,32 @@ class MetricsHook(RoundHook):
 
 
 class VerboseHook(RoundHook):
-    """Prints one line every ``every`` rounds and after the last round."""
+    """Prints progress every ``every`` rounds and after the last round.
 
-    every = 10
+    The numbers come from an ``obs.MetricsRegistry``, shared with a sibling
+    ``TelemetryHook`` when one is attached (``capture_round`` is idempotent
+    per round, so whichever hook fires first builds the row), its own
+    otherwise: one source of per-round truth."""
+
+    def __init__(self, every: int = 10, registry: Optional[MetricsRegistry] = None):
+        self.every = every
+        self.registry = registry
+
+    def on_run_start(self, ctx: RoundContext) -> None:
+        if self.registry is None:
+            shared = next((h.registry for h in ctx.engine.hooks
+                           if h is not self
+                           and isinstance(getattr(h, "registry", None), MetricsRegistry)),
+                          None)
+            self.registry = shared or MetricsRegistry()
 
     def on_round_end(self, ctx: RoundContext) -> None:
         t = ctx.round_idx
+        row = self.registry.capture_round(ctx)
         if t % self.every == 0 or t == ctx.fed.rounds - 1:
             eng = ctx.engine
-            print(f"round {t:3d}  {eng.metric_name}={ctx.metric:.4f}  "
-                  f"train_loss={ctx.train_loss:.4f}  selector={eng.selector_name}  "
-                  f"cohort={ctx.selected.tolist()}  select={ctx.select_ms:.2f}ms  "
-                  f"execute={ctx.execute_ms:.1f}ms  "
-                  f"aggregate={ctx.aggregate_ms:.2f}ms", flush=True)
-
+            print(self.registry.format_round(row, selector=eng.selector_name,
+                                             metric_name=eng.metric_name), flush=True)
 
 
 class AdaptiveMuHook(RoundHook):
@@ -651,9 +778,17 @@ class CheckpointHook(RoundHook):
     def on_round_end(self, ctx: RoundContext) -> None:
         t = ctx.round_idx
         if (t + 1) % self.every == 0 or t == ctx.fed.rounds - 1:
+            tracer = ctx.engine.tracer
+            tc0 = time.perf_counter() if tracer.enabled else 0.0
             ctx.engine.save(self.path)
             if self.keep_last is not None:
                 torch_ckpt.prune_federated_rounds(self.path, self.keep_last)
+            if tracer.enabled:
+                tracer.wall_span("checkpoint_save", tc0, time.perf_counter(),
+                                 track="checkpoint", cat="ckpt", args={"round": t})
+                # The stream is durable through this save: a preemption right
+                # after it must not cut the trace mid-track.
+                tracer.flush()
 
 
 class SimulatedPreemption(RuntimeError):
@@ -706,6 +841,14 @@ def _make_adaptive_mu(spec: "FederatedSpec") -> AdaptiveMuHook:
     return AdaptiveMuHook()
 
 
+@register_hook("telemetry")
+def _make_telemetry(spec: "FederatedSpec") -> RoundHook:
+    # Deferred: repro_torch.obs.hook imports this module.
+    from repro_torch.obs.hook import TelemetryHook
+
+    return TelemetryHook()
+
+
 # ---------------------------------------------------------------------------
 # Spec + engine
 # ---------------------------------------------------------------------------
@@ -732,6 +875,11 @@ class FederatedSpec:
     choose the asynchronous engine's clock. ``compact_state`` keeps the (K,)
     selection metadata in bf16 (``core.state.to_bf16``). ``device`` defaults
     to ``"cuda"``; on a machine without a card that raises at ``run()``.
+    ``compression`` ('int8' | 'topk', keeping ``topk_frac`` of each leaf)
+    wraps the executor in a ``CompressedExecutor``: a codec the named
+    schedule cannot carry raises ``ExecutorCompatError``, unless the
+    schedule was only the config default, which then falls back to the
+    sequential executor with a warning.
     """
 
     model: Any
@@ -744,6 +892,8 @@ class FederatedSpec:
     eval_fn: Optional[EvalFn] = None
     metric_name: Optional[str] = None
     executor: Union[str, ClientExecutor, None] = None
+    compression: Optional[str] = None    # None | 'int8' | 'topk'
+    topk_frac: float = 0.1
     aggregator: Union[str, Aggregator] = "fedavg"
     hooks: Sequence[Union[str, RoundHook]] = ()
     availability: Optional[np.ndarray] = None  # (rounds, K) bool masks
@@ -813,14 +963,38 @@ class FederatedSpec:
         return FederatedEngine(self)
 
 
+def _codec_schedule_conflict(spec: FederatedSpec, name: str) -> Optional[str]:
+    """Why ``spec.compression`` cannot ride the named schedule, or None."""
+    if spec.compression is None or name != "batched":
+        return None
+    if spec.compression == "topk":
+        return "compression='topk' keeps per-client host-side residuals"
+    if spec.compression == "int8" and spec.fed.client_chunk:
+        return ("compression='int8' needs the full (M, ...) client stack, "
+                "which chunked execution (client_chunk > 0) never materializes")
+    return None
+
+
 def _resolve_executor(spec: FederatedSpec) -> ClientExecutor:
     ex = spec.executor
+    explicit = ex is not None
     if ex is None or isinstance(ex, str):
         name = ex or spec.fed.client_execution
         if name not in EXECUTORS:
             raise ValueError(
                 f"client_execution must be one of {sorted(EXECUTORS)}, got {name!r}")
+        conflict = _codec_schedule_conflict(spec, name)
+        if conflict and not explicit:
+            # The schedule was only the config default: fall back, loudly.
+            warnings.warn(
+                f"{conflict}; falling back to the sequential executor (pass "
+                "client_execution='sequential' to silence, or 'batched' to "
+                "make this an error)", stacklevel=3)
+            name = "sequential"
         ex = EXECUTORS[name](spec)
+    if spec.compression is not None:
+        # An explicitly requested incompatible pair raises in here.
+        ex = CompressedExecutor(ex, spec.compression, spec.topk_frac)
     return ex
 
 
@@ -844,6 +1018,9 @@ def _resolve_hooks(spec: FederatedSpec) -> List[RoundHook]:
         hooks.append(h)
     if spec.verbose and not any(isinstance(h, VerboseHook) for h in hooks):
         hooks.append(VerboseHook())
+    # Stable priority order (higher first): telemetry producers run before
+    # the hooks that read their registry, wherever the spec listed them.
+    hooks.sort(key=lambda h: -getattr(h, "priority", 0))
     # The metrics hook runs first, so every other hook (checkpointing in
     # particular) sees the round's series already appended.
     mh = next((h for h in hooks if isinstance(h, MetricsHook)), None)
@@ -883,6 +1060,15 @@ class FederatedEngine:
             "metric" if spec.eval_fn is not None else default_metric_name(spec.model))
 
         self.mu = spec.fed.mu
+        # The telemetry plane (repro_torch.obs): TelemetryHook swaps in a
+        # live TraceRecorder at run start; the no-op default makes every
+        # instrumentation site one attribute read.
+        self.tracer = NULL_TRACER
+        # The async engines replace this with their VirtualClock; hooks find
+        # it through ``getattr(engine, "clock", None)``.
+        self.clock = None
+        self.wire_total = 0
+        self.raw_total = 0
         self.device: Optional[torch.device] = None
         self.params: Any = None
         self.state: Optional[ClientState] = None
@@ -952,6 +1138,8 @@ class FederatedEngine:
         self.rng = np.random.default_rng(fed.seed)
         self.start_round = 0
         self._rounds_done = 0
+        self.wire_total = 0
+        self.raw_total = 0
         self.metrics.reset()  # before the hooks: a resume repopulates these
 
     def round_noise(self, t: int) -> Draws:
@@ -978,6 +1166,8 @@ class FederatedEngine:
         synchronize(dev)
         t2 = time.perf_counter()
         self.params = self.aggregator.reduce(self.params, cohort)
+        self.wire_total += cohort.wire_bytes
+        self.raw_total += cohort.raw_bytes
         synchronize(dev)
         t3 = time.perf_counter()
         ctx.select_ms = (t1 - t0) * 1e3
@@ -996,6 +1186,9 @@ class FederatedEngine:
         ctx.obs_loss = obs_loss
         ctx.obs_sqnorm = obs_sqnorm
         self._eval(ctx, eval_batch)
+        self._trace_round(t, ("select", t0, t1, {}),
+                          ("execute", t1, t2, {"cohort": int(len(selected))}),
+                          ("aggregate", t2, t3, {}))
         ctx.train_loss = float(np.mean(obs_loss[selected])) if len(selected) else 0.0
         ctx.sim_time = float(t + 1)  # sync rounds cost "1" on the time axis
         self._rounds_done = t + 1
@@ -1005,7 +1198,20 @@ class FederatedEngine:
         waits for the device)."""
         t0 = time.perf_counter()
         ctx.metric = self.eval_fn(self.spec.model, self.params, eval_batch)
-        ctx.eval_ms = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        ctx.eval_ms = (t1 - t0) * 1e3
+        self._eval_span = (t0, t1)
+
+    def _trace_round(self, t: int, *phases) -> None:
+        """Record the round's phase spans, then its ``eval`` span, on the
+        wall timeline: each phase ``(name, t_start, t_end, args)`` with the
+        clock readings its ``*_ms`` was taken from, the round added to its
+        args."""
+        if not self.tracer.enabled:
+            return
+        for name, a, b, args in phases:
+            self.tracer.wall_span(name, a, b, args={"round": t, **args})
+        self.tracer.wall_span("eval", *self._eval_span, args={"round": t})
 
     def _dense_observations(self, selected: np.ndarray, cohort: CohortUpdates):
         k = self.spec.data.num_clients
@@ -1030,6 +1236,8 @@ class FederatedEngine:
             selection_counts=sel_hist.sum(axis=0),
             selected_history=sel_hist,
             params=self.params,
+            wire_bytes=self.wire_total,
+            raw_bytes=self.raw_total,
             metric_name=self.metric_name,
             mu_history=extras.get("mu_history"),
             wall_clock=extras.get("wall_clock"),
@@ -1041,6 +1249,7 @@ class FederatedEngine:
             eval_ms=np.asarray(self.metrics.eval_ms),
             serving=extras.get("serving"),
             served_metric=extras.get("served_metric"),
+            telemetry=extras.get("telemetry"),
         )
 
     # -- checkpoint / resume ----------------------------------------------
@@ -1106,6 +1315,8 @@ class FederatedEngine:
             "round": t,
             "engine": self.snapshot_kind,
             "mu": self.mu,
+            "wire_bytes": self.wire_total,
+            "raw_bytes": self.raw_total,
             "metric_name": self.metric_name,
             "np_rng_state": self.rng.bit_generator.state,
             "hook_states": hook_states,
@@ -1146,6 +1357,8 @@ class FederatedEngine:
         if "aggregator_state" in trees:
             self.aggregator.set_state(trees["aggregator_state"])
         self.rng.bit_generator.state = meta["np_rng_state"]
+        self.wire_total = int(meta.get("wire_bytes", 0))
+        self.raw_total = int(meta.get("raw_bytes", 0))
         if abs(meta.get("mu", self.mu) - self.mu) > 1e-12:
             self.set_mu(meta["mu"])
         self.metrics.metric = [float(x) for x in arrays["metric"]]

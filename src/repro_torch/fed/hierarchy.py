@@ -54,7 +54,10 @@ edge-cohort loss. ``CheckpointHook`` composes with both policies: the
 upload series, the budget controller and, under 'async', the clock with its
 in-flight edge cohorts travel through ``extra_state``.
 
-Tracer spans are not ported (``obs/`` is not).
+With a ``TelemetryHook`` attached each round records ``outer_select``,
+``inner_select``, ``execute`` (one ``edge_execute`` span per edge cohort on
+the "edges" track), ``aggregate`` and ``eval`` spans. A ``filtered:<base>``
+selector takes its base's outer-stage semantics.
 """
 
 from __future__ import annotations
@@ -70,9 +73,9 @@ import torch
 from repro_torch import ckpt as torch_ckpt
 from repro_torch.core.adaptive import AdaptiveBudgets
 from repro_torch.core.scoring import HeteRoScoreConfig
-from repro_torch.core.selection import (SelectorConfig, draw, dynamic_temperature,
-                                        edge_selection_probs, gumbel_noise,
-                                        make_selector, sample_clients)
+from repro_torch.core.selection import (SelectorConfig, base_selector_name, draw,
+                                        dynamic_temperature, edge_selection_probs,
+                                        gumbel_noise, make_selector, sample_clients)
 from repro_torch.core.state import (pool_client_state, score_inputs,
                                     update_client_state)
 from repro_torch.device import synchronize
@@ -174,8 +177,11 @@ class HierarchicalEngine(FederatedEngine):
             raise ValueError(
                 "topology='hierarchical' requires FedConfig.edge_count ≥ 1 "
                 f"(got {fed.edge_count}); set edge_count=E or topology='flat'")
+        # 'filtered:<base>' takes its base's outer-stage semantics: pooled
+        # pseudo-clients have no per-client pool to filter.
+        base_name = base_selector_name(selector)
         outer_active = 0 < self.hcfg.edges_per_round < fed.edge_count
-        if outer_active and selector in ("oort", "power_of_choice"):
+        if outer_active and base_name in ("oort", "power_of_choice"):
             raise ValueError(
                 f"selector={spec.resolved_selector!r} has no edge-level analogue "
                 "for the outer cross-edge stage; with edges_per_round < "
@@ -198,13 +204,13 @@ class HierarchicalEngine(FederatedEngine):
         # Outer-stage semantics follow the selector family: HeteRo variants
         # (and 'adaptive', on its HeteRo base scoring) score pooled edges,
         # multiplicative for heterosel_mult; 'random' samples edges uniformly.
-        self._outer_uniform = selector == "random"
+        self._outer_uniform = base_name == "random"
         self._outer_sel_cfg = (dataclasses.replace(self._base_sel, additive=False)
-                               if selector == "heterosel_mult" else self._base_sel)
+                               if base_name == "heterosel_mult" else self._base_sel)
         # 'adaptive' retunes the edge budgets online from the mean
         # edge-cohort losses (AdaptiveBudgets) instead of the static split.
         self._budget_ctl: Optional[AdaptiveBudgets] = None
-        if selector == "adaptive":
+        if base_name == "adaptive":
             if fed.edge_budget > 0:
                 raise ValueError(
                     "selector='adaptive' retunes per-edge budgets online "
@@ -354,6 +360,8 @@ class HierarchicalEngine(FederatedEngine):
         ``edge_noise`` on every call.
         """
         active = self._choose_edges(t, self._idle_edges())
+        # The outer stage ends here: the round's outer_select span.
+        self._outer_done, self._outer_edges = time.perf_counter(), len(active)
         masks = []
         if self._segmented:
             from repro_torch.kernels import score_select
@@ -392,10 +400,14 @@ class HierarchicalEngine(FederatedEngine):
         """One executor call per selected edge cohort, edges in ascending id
         order (the host data stream's order)."""
         out: List[EdgeCohort] = []
+        enabled = self.tracer.enabled
         for e, sel_global in picks:
+            te = time.perf_counter() if enabled else 0.0
             weights = self.aggregator.cohort_weights(sel_global, self.spec.data)
             cohort = self.executor.run_round(self.params, sel_global, self.rng,
                                              weights=weights)
+            self.wire_total += cohort.wire_bytes
+            self.raw_total += cohort.raw_bytes
             ew = (float(len(sel_global)) if weights is None
                   else float(np.sum(np.asarray(weights.cpu(), np.float64))))
             out.append(EdgeCohort(
@@ -403,6 +415,11 @@ class HierarchicalEngine(FederatedEngine):
                 losses=_host_f32(cohort.mean_loss),
                 sqnorms=_host_f32(cohort.update_sqnorm),
                 weight=ew, avg_params=self.aggregator._mean(cohort)))
+            if enabled:
+                synchronize(self.device)
+                self.tracer.wall_span(
+                    "edge_execute", te, time.perf_counter(), track="edges",
+                    args={"edge": int(e), "cohort": int(len(sel_global))})
         return out
 
     def _fold_observations(self, ctx: RoundContext, t: int, cohorts: List[EdgeCohort],
@@ -479,6 +496,9 @@ class HierarchicalEngine(FederatedEngine):
         ctx.aggregate_ms = (t3 - t2) * 1e3
         self._fold_observations(ctx, t, cohorts)
         self._eval(ctx, eval_batch)
+        self._trace_round(t, *self._select_spans(t0, t1),
+                          ("execute", t1, t2, {"edges": int(len(picks))}),
+                          ("aggregate", t2, t3, {"cloud_uploads": int(len(cohorts))}))
         ctx.sim_time = float(t + 1)
 
     def _run_round_async(self, ctx: RoundContext, t: int, eval_batch: Any) -> None:
@@ -535,6 +555,17 @@ class HierarchicalEngine(FederatedEngine):
         ctx.num_arrivals = len(kept)
         ctx.num_stragglers = n_stragglers
         self._eval(ctx, eval_batch)
+        self._trace_round(t, *self._select_spans(t0, t1),
+                          ("execute", t1, t2, {"edges": int(len(picks))}),
+                          ("aggregate", t2, t3, {"cloud_uploads": int(len(kept)),
+                                                 "stragglers": n_stragglers}))
+
+    def _select_spans(self, t0: float, t1: float):
+        """The round's ``outer_select`` and ``inner_select`` phases, split
+        where ``select_round`` finished the outer stage."""
+        ts = self._outer_done
+        return (("outer_select", t0, ts, {"edges": int(self._outer_edges)}),
+                ("inner_select", ts, t1, {}))
 
     def _result(self, extras: Dict[str, Any]) -> FLResult:
         extras.setdefault("cloud_uploads", np.asarray(self.cloud_uploads, np.int64))

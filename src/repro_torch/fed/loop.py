@@ -11,7 +11,11 @@ and outer-budget knobs and ``edge_noise`` the per-edge draws.
 on a virtual clock (``fed.async_engine``) with latencies from ``system`` and
 knobs in ``async_cfg``; ``availability`` masks the clients offline each
 round; ``adaptive_mu=True`` adds the ``'adaptive_mu'`` hook, and ``hooks``
-takes more (``CheckpointHook(dir)`` for mid-run resume).
+takes more (``CheckpointHook(dir)`` for mid-run resume, ``'telemetry'``).
+``compression`` ('int8' | 'topk') composes with the execution schedule:
+int8 runs under either executor; top-k needs the sequential one, so an
+explicit ``client_execution='batched'`` raises while the config default
+falls back to sequential with a warning.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ def run_federated(
     steps_per_round: Optional[int] = None,
     eval_fn: Optional[Callable[..., float]] = None,
     aggregator: str = "fedavg",
+    compression: Optional[str] = None,   # None | 'int8' | 'topk'
+    topk_frac: float = 0.1,
     client_execution: Optional[str] = None,  # None ⇒ fed.client_execution
     verbose: bool = False,
     availability: Optional[np.ndarray] = None,  # (rounds, K) bool masks
@@ -58,7 +64,8 @@ def run_federated(
     return FederatedSpec(
         model=model, fed=fed, data=data, selector=selector,
         score_cfg=score_cfg, sel_cfg=sel_cfg, steps_per_round=steps_per_round,
-        eval_fn=eval_fn, executor=client_execution, aggregator=aggregator,
+        eval_fn=eval_fn, executor=client_execution, compression=compression,
+        topk_frac=topk_frac, aggregator=aggregator,
         hooks=(["adaptive_mu"] if adaptive_mu else []) + list(hooks), verbose=verbose,
         availability=availability, round_policy=round_policy, async_cfg=async_cfg,
         system=system, topology=topology, device=device,

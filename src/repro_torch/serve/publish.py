@@ -26,9 +26,8 @@ training metrics, selection history, wall clock and final params bitwise
 identical with and without this hook, for {sync, async} × {flat,
 hierarchical}.
 
-The reference also records ``serve_wave`` and ``publish`` tracer spans; the
-port's engines carry no tracer yet (``obs/`` comes with a later slice), so
-this hook records none.
+With a ``TelemetryHook`` attached each round records a ``serve_wave``
+span (round, requests) and a ``publish`` span (round) on the "serve" track.
 
 Attach it like any hook::
 
@@ -125,13 +124,21 @@ class PublishHook(RoundHook):
         # 1) Serve the traffic that arrived during this round — against the
         #    registry as published through round t-1 (the new params are not
         #    in the registry yet: serve v while v+1 aggregates).
+        tracer = engine.tracer
         if self.server is not None:
+            tw0 = time.perf_counter() if tracer.enabled else 0.0
             clock = getattr(engine, "clock", None) or self._own_clock
             queue = clock.channel(self.channel)
             self.sim.schedule_until(queue, close)
+            n_requests = 0
             for ev in queue.pop_due(close):
                 self.server.submit(ev.payload, arrival_round=ctx.round_idx, now=ev.time)
+                n_requests += 1
             self.server.pump()
+            if tracer.enabled:
+                tracer.wall_span("serve_wave", tw0, time.perf_counter(), track="serve",
+                                 cat="serve", args={"round": ctx.round_idx,
+                                                    "requests": n_requests})
 
         # 2) Accuracy-under-traffic: evaluate the version traffic is being
         #    served by (NOT the just-aggregated params).
@@ -153,7 +160,11 @@ class PublishHook(RoundHook):
         self.registry.publish(engine.params, round_idx=ctx.round_idx,
                               step=engine.spec.resolved_steps * (ctx.round_idx + 1),
                               metric=ctx.metric)
-        self.metrics.record_publish((time.perf_counter() - t0) * 1e3)
+        t1 = time.perf_counter()
+        self.metrics.record_publish((t1 - t0) * 1e3)
+        if tracer.enabled:
+            tracer.wall_span("publish", t0, t1, track="serve", cat="serve",
+                             args={"round": ctx.round_idx})
 
     def contribute(self, extras: dict) -> None:
         summary = self.metrics.summary()

@@ -1,10 +1,10 @@
 """The asynchronous slice of the port against the JAX reference: the virtual
 clock, the latency model, FedBuff's staleness weights and buffered
 aggregation, the 4-argument selectors with the clock's staleness override,
-the sync-replay contract, one smoke async federation, flat and
+the sync-replay contract and the loud refusals of the reference's
+``tests/test_async_engine.py``; the smoke async federations, flat and
 hierarchical (``heterosel`` with the outer stage's over-selection, and
-``adaptive`` with its budgets), and the loud refusals of the reference's
-``tests/test_async_engine.py``.
+``adaptive`` with its budgets), are in ``test_torch_async_fed.py``.
 
 Draws: the reference engine splits ``key, sk`` each round and its jitted
 selector draws ``gumbel(sk, (K,))`` (Power-of-Choice and Oort split ``sk``
@@ -46,9 +46,6 @@ from repro.configs.registry import get_config as jax_get_config
 from repro.configs.registry import smoke_variant as jax_smoke_variant
 from repro.core import selection as jselection
 from repro.data import make_vision_data as jax_make_vision_data
-from repro.fed import AsyncConfig as JaxAsyncConfig
-from repro.fed import FederatedSpec as JaxSpec
-from repro.fed import HierarchyConfig as JaxHierCfg
 from repro.fed import RoundHook as JaxRoundHook
 from repro.fed import async_engine as jasync
 from repro.fed import clock as jclock
@@ -58,12 +55,12 @@ from repro_torch.configs.registry import get_config, smoke_variant
 from repro_torch.convert import params_from_jax
 from repro_torch.core import selection
 from repro_torch.data import make_vision_data
-from repro_torch.fed import (AsyncConfig, AsyncFederatedEngine, BufferedAggregator,
-                             ExecutorCompatError, FederatedSpec, HierarchyConfig,
-                             LatencyModel, RoundHook, VirtualClock, edge_budgets,
-                             partition_edges, run_federated, staleness_weights)
+from repro_torch.fed import (AsyncConfig, BufferedAggregator, ExecutorCompatError,
+                             FederatedSpec, LatencyModel, RoundHook, VirtualClock,
+                             run_federated, staleness_weights)
 from repro_torch.fed import async_engine
 from repro_torch.kernels import score_select as tss
+
 from test_torch_selectors import DRAWS, states
 from test_torch_slice import jax_compile_cache  # noqa: F401  (autouse fixture)
 
@@ -297,34 +294,6 @@ def build_model_smoke():
         smoke_variant(get_config("resnet18-cifar10")), d_model=8))
 
 
-@pytest.fixture(scope="module")
-def reference_async(setups):
-    """The reference's smoke async run, once per module."""
-    jfed, jmodel, jdata = setups[0]
-    return JaxSpec(jmodel, dataclasses.replace(jfed, round_policy="async"), jdata,
-                   selector="heterosel", steps_per_round=STEPS, system=MULT,
-                   async_cfg=JaxAsyncConfig(**ACFG_KW)).build().run()
-
-
-def test_async_federation_matches_reference(setups, reference_async):
-    _, (fed, model, data), params = setups
-    ref = reference_async
-    noise = reference_draws("heterosel", fed.seed, fed.num_clients, ROUNDS)
-    engine = FederatedSpec(model, dataclasses.replace(fed, round_policy="async"), data,
-                           selector="heterosel", steps_per_round=STEPS, system=MULT,
-                           async_cfg=AsyncConfig(**ACFG_KW), device="cpu",
-                           init_params=params, noise=lambda t, k: noise[t]).build()
-    assert isinstance(engine, AsyncFederatedEngine) and engine.m_over == 5
-    res = engine.run()
-    np.testing.assert_array_equal(res.selected_history, np.asarray(ref.selected_history))
-    np.testing.assert_array_equal(res.wall_clock, np.asarray(ref.wall_clock))
-    np.testing.assert_array_equal(res.round_staleness, np.asarray(ref.round_staleness))
-    assert engine.stragglers_carried > 0  # the profile carries updates over
-    n_test = len(data.test_labels)
-    np.testing.assert_allclose(res.accuracy, ref.accuracy, atol=2.0 / n_test)
-    np.testing.assert_allclose(res.train_loss, ref.train_loss, rtol=1e-3)
-
-
 class BudgetLog(RoundHook):
     """The hierarchical engine's per-edge budgets after each round."""
 
@@ -347,74 +316,6 @@ class JaxBudgetLog(JaxRoundHook):
 # round). With E_sel = 1 the outer stage over-selects ⌈1 · 1.5⌉ = 2 of the
 # idle edges by its draw; 'adaptive' dispatches every idle edge under the
 # budgets its controller moves.
-HIER_ASYNC = {"heterosel": ("heterosel", 3, 1), "adaptive": ("adaptive", 2, 0)}
-SERIES = ("cloud_uploads", "wall_clock", "round_staleness")
-
-
-@pytest.fixture(scope="module")
-def reference_hier_async(setups):
-    """The reference's hierarchical async runs by case, each once per
-    module: (result, per-round budgets, stragglers carried, dropped)."""
-    jfed, jmodel, jdata = setups[0]
-    runs = {}
-
-    def run(case):
-        if case not in runs:
-            selector, edges, per_round = HIER_ASYNC[case]
-            log = JaxBudgetLog()
-            engine = JaxSpec(jmodel, dataclasses.replace(
-                jfed, round_policy="async", topology="hierarchical", edge_count=edges),
-                jdata, selector=selector, steps_per_round=STEPS, system=MULT,
-                async_cfg=JaxAsyncConfig(**ACFG_KW), hooks=[log],
-                hier_cfg=JaxHierCfg(edges_per_round=per_round)).build()
-            res = engine.run()
-            runs[case] = (res, log.budgets, engine.stragglers_carried, engine.updates_dropped)
-        return runs[case]
-
-    return run
-
-
-@pytest.mark.parametrize("case", list(HIER_ASYNC))
-def test_hierarchical_async_matches_reference(setups, reference_hier_async, case):
-    """Edge over-selection, each edge's latency as its cohort's max, FedBuff
-    over the edge deltas, and (under 'adaptive') the budgets retuned from
-    the arrivals: the dispatch history, the upload, clock and staleness
-    series, the straggler counts and the per-round budgets equal the
-    reference's."""
-    _, (fed, model, data), params = setups
-    selector, edges, per_round = HIER_ASYNC[case]
-    ref, ref_budgets, ref_carried, ref_dropped = reference_hier_async(case)
-    sizes = partition_edges(data.label_js, edges).sizes
-    draws = hier_draws(fed.seed, ROUNDS, sizes, outer=per_round > 0, remask=False)
-    streams = set()
-
-    def edge_noise(t, stream, n):
-        streams.add(stream)
-        return draws[t, stream]
-
-    log = BudgetLog()
-    engine = FederatedSpec(
-        model, dataclasses.replace(fed, round_policy="async", topology="hierarchical",
-                                   edge_count=edges),
-        data, selector=selector, steps_per_round=STEPS, system=MULT,
-        async_cfg=AsyncConfig(**ACFG_KW), hier_cfg=HierarchyConfig(edges_per_round=per_round),
-        device="cpu", init_params=params, edge_noise=edge_noise, hooks=[log]).build()
-    res = engine.run()
-    np.testing.assert_array_equal(res.selected_history, np.asarray(ref.selected_history))
-    for name in SERIES:
-        np.testing.assert_array_equal(getattr(res, name), np.asarray(getattr(ref, name)),
-                                      err_msg=name)
-    np.testing.assert_array_equal(np.stack(log.budgets), np.stack(ref_budgets))
-    assert (engine.stragglers_carried, engine.updates_dropped) == (ref_carried, ref_dropped)
-    assert engine.stragglers_carried > 0  # straggler edges carry over
-    if per_round:
-        assert edges in streams  # the outer stage drew
-    else:
-        static = edge_budgets(fed.num_selected, sizes)
-        assert any(not np.array_equal(b, static) for b in log.budgets), log.budgets
-    n_test = len(data.test_labels)
-    np.testing.assert_allclose(res.accuracy, ref.accuracy, atol=2.0 / n_test)
-    np.testing.assert_allclose(res.train_loss, ref.train_loss, rtol=1e-3)
 
 
 def test_async_replays_sync_under_equal_latencies(setups):

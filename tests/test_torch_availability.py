@@ -1,8 +1,10 @@
 """Availability masks and adaptive budgets in the port against the JAX
 reference: ``mask_selector`` / ``mask_async_selector`` with the re-sample's
-draw replayed, sync flat and hierarchical federations under an
-availability trace, ``AdaptiveBudgets`` / ``AdaptiveMu`` on the same
-observations, and the hierarchical ``adaptive`` selector's budget series.
+draw replayed, ``AdaptiveBudgets`` / ``AdaptiveMu`` on the same
+observations; the sync flat and hierarchical federations under an
+availability trace and the hierarchical ``adaptive`` selector's budget
+series are in ``test_torch_availability_fed.py`` (same draws and
+tolerances).
 
 Draws: the reference's masked selector draws its inner Gumbel row from the
 round key ``sk`` and the re-sample's from ``fold_in(sk, 1)``; the port takes
@@ -41,8 +43,6 @@ from repro.configs.registry import smoke_variant as jax_smoke_variant
 from repro.core import adaptive as jadaptive
 from repro.core import selection as jselection
 from repro.data import make_vision_data as jax_make_vision_data
-from repro.fed import FederatedSpec as JaxSpec
-from repro.fed import HierarchyConfig as JaxHierCfg
 from repro.fed import availability as javail
 from repro.models import build_model as jax_build_model
 from repro_torch.configs.base import FedConfig
@@ -50,10 +50,10 @@ from repro_torch.configs.registry import get_config, smoke_variant
 from repro_torch.convert import params_from_jax
 from repro_torch.core import adaptive, selection
 from repro_torch.data import make_vision_data
-from repro_torch.fed import (AvailabilityTrace, FederatedSpec, HierarchyConfig, SystemProfile,
-                             availability, edge_budgets, partition_edges)
+from repro_torch.fed import AvailabilityTrace, SystemProfile, availability
 from repro_torch.models import build_model
-from test_torch_async import BudgetLog, JaxBudgetLog, hier_draws, reference_draws, round_draws
+
+from test_torch_async import round_draws
 from test_torch_selectors import states
 from test_torch_slice import jax_compile_cache  # noqa: F401  (autouse fixture)
 
@@ -200,80 +200,3 @@ def setups():
 
 
 # Hierarchical cases: (selector, E, edges per round, availability trace).
-HIER_CASES = {"hierarchical": ("heterosel", 3, 2, True),
-              "pallas": ("heterosel_pallas", 3, 2, True),
-              "adaptive": ("adaptive", 4, 0, False)}
-
-
-@pytest.fixture(scope="module")
-def reference(setups):
-    """Reference runs by case, each run once per module, the hierarchical
-    ones with their per-round budgets."""
-    jfed, jmodel, jdata = setups[0]
-    runs = {}
-
-    def run(case):
-        if case not in runs:
-            hooks = [JaxBudgetLog()]
-            if case == "flat":
-                spec = JaxSpec(jmodel, jfed, jdata, selector="heterosel",
-                               steps_per_round=STEPS, availability=trace())
-            else:
-                selector, edges, per_round, avail = HIER_CASES[case]
-                hfed = dataclasses.replace(jfed, topology="hierarchical", edge_count=edges)
-                spec = JaxSpec(jmodel, hfed, jdata, selector=selector,
-                               steps_per_round=STEPS, hooks=hooks,
-                               hier_cfg=JaxHierCfg(edges_per_round=per_round),
-                               availability=trace() if avail else None)
-            runs[case] = (spec.build().run(), hooks[0].budgets)
-        return runs[case]
-
-    return run
-
-
-def assert_matches(res, ref, data):
-    np.testing.assert_array_equal(res.selected_history, np.asarray(ref.selected_history))
-    n_test = len(data.test_labels)
-    np.testing.assert_allclose(res.accuracy, ref.accuracy, atol=2.0 / n_test)
-    np.testing.assert_allclose(res.train_loss, ref.train_loss, rtol=1e-3)
-
-
-def test_sync_flat_with_availability_matches_reference(setups, reference):
-    _, (fed, model, data), params = setups
-    ref, _ = reference("flat")
-    noise = reference_draws("heterosel", fed.seed, fed.num_clients, ROUNDS, remask=True)
-    res = FederatedSpec(model, fed, data, selector="heterosel", steps_per_round=STEPS,
-                        availability=trace(), device="cpu", init_params=params,
-                        noise=lambda t, k: noise[t]).build().run()
-    assert_matches(res, ref, data)
-    assert not (res.selected_history & ~trace()).any()
-
-
-@pytest.mark.parametrize("case", list(HIER_CASES))
-def test_sync_hierarchical_matches_reference(setups, reference, case):
-    """Availability through the inner stage (E = 3, outer stage on), by the
-    per-edge masked selectors or by the segmented ``heterosel_pallas``
-    stage's re-sample of K4's probabilities, or the ``adaptive`` selector's
-    budget controller (E = 4): histories and the per-round budgets equal
-    the reference's."""
-    _, (fed, model, data), params = setups
-    selector, edges, per_round, avail = HIER_CASES[case]
-    ref, ref_budgets = reference(case)
-    hfed = dataclasses.replace(fed, topology="hierarchical", edge_count=edges)
-    sizes = partition_edges(data.label_js, edges).sizes
-    draws = hier_draws(fed.seed, ROUNDS, sizes, outer=0 < per_round < edges, remask=avail,
-                       jit_inner=selector != "heterosel_pallas")
-    log = BudgetLog()
-    res = FederatedSpec(model, hfed, data, selector=selector, steps_per_round=STEPS,
-                        device="cpu", init_params=params,
-                        hier_cfg=HierarchyConfig(edges_per_round=per_round),
-                        availability=trace() if avail else None,
-                        edge_noise=lambda t, s, n: draws[t, s], hooks=[log]).build().run()
-    assert_matches(res, ref, data)
-    np.testing.assert_array_equal(np.stack(log.budgets), np.stack(ref_budgets))
-    if avail:
-        assert not (res.selected_history & ~trace()).any()
-    else:
-        static = edge_budgets(fed.num_selected, sizes)
-        assert any(not np.array_equal(b, static) for b in log.budgets), log.budgets
-        assert all(b.sum() <= fed.num_selected for b in log.budgets)

@@ -1266,3 +1266,194 @@ def test_cuda_grouped_matmul_at_decode_row_counts(cuda_device, slots, dtype):
     assert tgmm.LAUNCHES["grouped_matmul"] == before + 1
     want = tgmm.gmm_plain_clients(xs.reshape(slots * 8, k), rhs, sizes)
     assert_gmm_close(got.reshape(slots * 8, n), want)
+
+
+# ---------------------------------------------------------------------------
+# Slice 10: K1 + K2 at K = 2048 under telemetry, int8 compression, churn
+# ---------------------------------------------------------------------------
+
+
+def _smoke_resnet():
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import build_model
+
+    return build_model(dataclasses.replace(
+        smoke_variant(get_config("resnet18-cifar10")), d_model=8, image_size=8))
+
+
+@pytest.mark.cuda
+def test_cuda_large_k_rounds_under_telemetry(cuda_device):
+    """Lazy data at K = 2048 under heterosel_pallas with a TelemetryHook:
+    K1 and K2 once a round, each cohort equal to the plain versions'
+    selection on the same state and draws; the trace validates and its
+    select/execute/aggregate spans are the *_ms clock readings; the run
+    equals the bare run bitwise under deterministic algorithms."""
+    import numpy as np
+
+    from repro_torch.configs import FedConfig
+    from repro_torch.core.state import score_inputs
+    from repro_torch.data import make_lazy_vision_data
+    from repro_torch.fed import FederatedSpec, RoundHook
+    from repro_torch.obs import TelemetryHook, validate_trace_events
+
+    fed = FedConfig(num_clients=2048, participation=16 / 2048, rounds=3, local_batch=8,
+                    lr=0.05, mu=0.1, seed=0, client_chunk=8)
+    data = make_lazy_vision_data(fed, image_size=8, test_per_class=4)
+    model = _smoke_resnet()
+
+    def noise(t, k):
+        return gumbel_noise(torch.Generator(device=cuda_device).manual_seed(200 + t), k)
+
+    class Check(RoundHook):
+        def on_round_start(self, ctx):
+            eng, t = ctx.engine, ctx.round_idx
+            sel, _, _ = tss.fused_score_select_plain(
+                *score_inputs(eng.state), round_idx=t,
+                tau=dynamic_temperature(t, SelectorConfig()), m=16,
+                gumbel=eng.round_noise(t), cfg=HeteRoScoreConfig())
+            self.want = np.zeros(fed.num_clients, bool)
+            self.want[sel.cpu().numpy()] = True
+            self.before = dict(tss.LAUNCHES)
+
+        def on_round_end(self, ctx):
+            grew = {n: tss.LAUNCHES[n] - self.before[n] for n in ("score_stats", "score_select")}
+            assert grew == {"score_stats": 1, "score_select": 1}, grew
+            np.testing.assert_array_equal(ctx.mask, self.want)
+
+    def run(hooks):
+        return FederatedSpec(model, fed, data, selector="heterosel_pallas", steps_per_round=2,
+                             device=cuda_device, noise=noise, hooks=hooks).build().run()
+
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        tel = TelemetryHook()
+        wired = run([tel, Check()])
+        bare = run([])
+    finally:
+        torch.use_deterministic_algorithms(before)
+    events = tel.recorder.events
+    validate_trace_events(events)
+    for name in ("select", "execute", "aggregate"):
+        starts = [e["ts"] for e in events if e["name"] == name and e["ph"] == "B"]
+        ends = [e["ts"] for e in events if e["name"] == name and e["ph"] == "E"]
+        got = (np.asarray(ends) - np.asarray(starts)) / 1e3
+        np.testing.assert_allclose(got, getattr(wired, f"{name}_ms"), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(wired.selected_history, bare.selected_history)
+    for k, p in bare.params.items():
+        assert torch.equal(p.view(torch.uint8), wired.params[k].view(torch.uint8)), k
+
+
+@pytest.mark.cuda
+def test_cuda_int8_codes_equal_the_cpu_codes(cuda_device):
+    """int8 (per tensor and stacked per client) and top-k on the card give
+    the CPU's codes, scales and indices bitwise (ties included)."""
+    from repro_torch.fed import compression as comp
+
+    gen = torch.Generator().manual_seed(0)
+    delta = {"w": torch.randn(64, 3, 3, 32, generator=gen),
+             "b": torch.randn(4, 513, generator=gen) * 1e-3,
+             "t": torch.randint(-2, 3, (4, 1000), generator=gen).float() * 0.25}
+    on = {k: v.to(cuda_device) for k, v in delta.items()}
+    for fn in (comp.quantize_int8, comp.quantize_int8_stacked):
+        (c_cpu, s_cpu), (c_gpu, s_gpu) = fn(delta), fn(on)
+        assert tuple(s_cpu) == tuple(s_gpu)
+        for k in delta:
+            assert torch.equal(c_gpu.payload[k].cpu(), c_cpu.payload[k]), k
+            assert torch.equal(c_gpu.meta[k].cpu(), c_cpu.meta[k]), k
+    (c_cpu, r_cpu, _), (c_gpu, r_gpu, _) = (comp.topk_sparsify(delta, 0.1),
+                                            comp.topk_sparsify(on, 0.1))
+    for k in delta:
+        assert torch.equal(c_gpu.payload[k][1].cpu(), c_cpu.payload[k][1]), k
+        assert torch.equal(c_gpu.payload[k][0].cpu(), c_cpu.payload[k][0]), k
+        assert torch.equal(r_gpu[k].cpu(), r_cpu[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_int8_batched_round_is_the_plain_aggregate(cuda_device):
+    """int8 over the batched executor on the card: in the first round each
+    client's decoded slice equals its delta coded on its own (scale
+    max|delta| / 127, codes round(delta / scale)) bitwise, the aggregate is
+    the weighted mean of the decoded clients up to summation order, and
+    the run moves the weights."""
+    import dataclasses
+
+    from repro_torch.configs import FedConfig, get_config, smoke_variant
+    from repro_torch.data import make_vision_data
+    from repro_torch.fed import FederatedSpec
+    from repro_torch.models import build_model
+
+    fed = FedConfig(num_clients=6, participation=0.5, rounds=2, local_batch=8, lr=0.05,
+                    mu=0.1, dirichlet_alpha=0.1, seed=0)
+    model = build_model(dataclasses.replace(smoke_variant(get_config("resnet18-cifar10")),
+                                            d_model=8))
+    eng = FederatedSpec(model, fed, make_vision_data(fed, train_per_class=24, test_per_class=8),
+                        selector="heterosel_pallas", steps_per_round=2, executor="batched",
+                        compression="int8", aggregator="fedavgm", device=cuda_device).build()
+    seen, outer, inner = {}, eng.executor.run_round, eng.executor.inner.run_round
+
+    def inner_round(*args, **kwargs):
+        cohort = inner(*args, **kwargs)
+        seen.setdefault("raw", {k: v.clone() for k, v in cohort.stacked_params.items()})
+        return cohort
+
+    def outer_round(params, *args, **kwargs):
+        cohort = outer(params, *args, **kwargs)
+        if "cohort" not in seen:
+            seen["anchor"], seen["cohort"] = {k: v.clone() for k, v in params.items()}, cohort
+        return cohort
+
+    eng.executor.inner.run_round, eng.executor.run_round = inner_round, outer_round
+    res = eng.run()
+    anchor, cohort = seen["anchor"], seen["cohort"]
+    w = torch.ones(fed.num_selected, device=cuda_device) if cohort.weights is None \
+        else cohort.weights.float()
+    for k, stack in seen["raw"].items():
+        rebuilt = []
+        for i in range(stack.shape[0]):
+            delta = stack[i] - anchor[k]
+            scale = torch.clamp_min(delta.abs().max(), 1e-12) / torch.full(
+                (), 127.0, device=cuda_device)
+            rebuilt.append(anchor[k] + torch.clamp(torch.round(delta / scale), -127, 127) * scale)
+            assert torch.equal(rebuilt[i], cohort.stacked_params[k][i]), (k, i)
+        mean = sum(wi * r for wi, r in zip(w, rebuilt)) / w.sum()
+        torch.testing.assert_close(cohort.avg_params[k], mean, rtol=1e-5, atol=1e-6)
+    assert any(not torch.equal(res.params[k], anchor[k]) for k in anchor)
+
+
+@pytest.mark.cuda
+def test_cuda_hierarchical_churn_runs_k4_with_spans(cuda_device):
+    """The hierarchical engine under the 'churn' scenario with a
+    TelemetryHook on the card: K4 once a round, no offline client selected,
+    outer_select + inner_select spans summing to select_ms."""
+    import numpy as np
+
+    from repro_torch.configs import FedConfig
+    from repro_torch.data import make_vision_data
+    from repro_torch.fed import FederatedSpec, HierarchyConfig, make_scenario
+    from repro_torch.obs import TelemetryHook, validate_trace_events
+
+    fed = FedConfig(num_clients=24, participation=0.5, rounds=3, local_batch=8, lr=0.05,
+                    mu=0.1, seed=0, topology="hierarchical", edge_count=4)
+    data = make_vision_data(fed, train_per_class=48, test_per_class=4, image_size=8)
+    built = make_scenario("churn").build(fed)
+    tel = TelemetryHook()
+    before = tss.LAUNCHES["segment_probs"]
+    res = FederatedSpec(_smoke_resnet(), fed, data, selector="heterosel_pallas",
+                        steps_per_round=1, device=cuda_device,
+                        hier_cfg=HierarchyConfig(edges_per_round=3), hooks=[tel],
+                        **built.spec_kwargs()).build().run()
+    assert tss.LAUNCHES["segment_probs"] == before + fed.rounds
+    assert not (res.selected_history & ~built.availability).any()
+    events = tel.recorder.events
+    validate_trace_events(events)
+
+    def durations(name):
+        b = [e["ts"] for e in events if e["name"] == name and e["ph"] == "B"]
+        e = [e["ts"] for e in events if e["name"] == name and e["ph"] == "E"]
+        return (np.asarray(e) - np.asarray(b)) / 1e3
+
+    np.testing.assert_allclose(durations("outer_select") + durations("inner_select"),
+                               res.select_ms, rtol=0, atol=1e-6)

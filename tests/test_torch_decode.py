@@ -49,6 +49,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.models import attention, build_model, dense, hybrid, mamba2, vlm
 
 from test_torch_flash import np32
+from test_torch_slice import jax_compile_cache  # noqa: F401  (autouse fixture)
 
 # family case → (arch, config overrides, (reference, port) modules whose
 # DEFAULT_DTYPE the f32 runs patch)

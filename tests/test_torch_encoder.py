@@ -37,6 +37,7 @@ from repro_torch.fed.client import local_train
 from repro_torch.models import build_model, encoder
 
 from test_torch_flash import bf16_ulp, np32
+from test_torch_slice import jax_compile_cache  # noqa: F401  (autouse fixture)
 
 ARCH = "hubert-xlarge"
 

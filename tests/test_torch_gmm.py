@@ -34,6 +34,7 @@ from repro_torch.kernels import moe_gmm as tgmm
 from repro_torch.kernels import ops
 
 from test_torch_flash import bf16_ulp, np32
+from test_torch_slice import jax_compile_cache  # noqa: F401  (autouse fixture)
 
 # (M, K, N, G, block_m) of the reference's TestGroupedMatmulKernel
 SHAPES = [(64, 32, 64, 4, 16), (100, 16, 32, 3, 8), (256, 64, 128, 8, 32)]

@@ -46,6 +46,7 @@ from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.models import build_model, hybrid, mamba2
 
 from test_torch_flash import bf16_ulp, np32
+from test_torch_slice import jax_compile_cache  # noqa: F401  (autouse fixture)
 
 ARCH = "zamba2-7b"
 VARIANTS = {"smoke": {}, "5 layers": {"num_layers": 5}}

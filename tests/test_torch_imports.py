@@ -127,6 +127,14 @@ SLICE9_MODULES = ("repro_torch.serve", "repro_torch.serve.metrics", "repro_torch
                   "repro_torch.models.moe")
 
 
+# The modules slice 10 added or extended.
+SLICE10_MODULES = ("repro_torch.obs", "repro_torch.obs.trace", "repro_torch.obs.metrics",
+                   "repro_torch.obs.stability", "repro_torch.obs.matrix",
+                   "repro_torch.obs.hook", "repro_torch.fed.compression",
+                   "repro_torch.fed.scenarios", "repro_torch.data",
+                   "repro_torch.examples.production_features")
+
+
 # One fresh interpreter loads torch and numpy, then forks a child for each
 # module; the child imports that module alone and reports what of JAX and the
 # reference package sys.modules then holds. One interpreter start-up (most of
@@ -162,7 +170,8 @@ print(json.dumps(found))
 def loaded_by_import():
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run([sys.executable, "-c", _FORK_EACH, *SLICE6_MODULES,
-                           *SLICE7_MODULES, *SLICE8_MODULES, *SLICE9_MODULES],
+                           *SLICE7_MODULES, *SLICE8_MODULES, *SLICE9_MODULES,
+                           *SLICE10_MODULES],
                           capture_output=True, text=True, timeout=240, env=env)
     assert proc.returncode == 0, proc.stderr
     return json.loads(proc.stdout.splitlines()[-1])
@@ -202,6 +211,17 @@ def test_slice9_module_loads_no_jax_and_no_reference(module, loaded_by_import):
     """As for slices 6–8: imported alone in a fresh process, the module (the
     serving tier, its launcher and example, the families that gained decode)
     pulls in neither JAX nor the reference package."""
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    assert path.exists() or (path.parent / path.stem / "__init__.py").exists()
+    assert loaded_by_import[module] == [], loaded_by_import[module]
+
+
+@pytest.mark.parametrize("module", SLICE10_MODULES)
+def test_slice10_module_loads_no_jax_and_no_reference(module, loaded_by_import):
+    """As for slices 6–9: imported alone in a fresh process, the module (the
+    telemetry plane, compression, the scenarios, the lazy and drifting data,
+    the production-features example) pulls in neither JAX nor the reference
+    package."""
     path = ROOT / "src" / (module.replace(".", "/") + ".py")
     assert path.exists() or (path.parent / path.stem / "__init__.py").exists()
     assert loaded_by_import[module] == [], loaded_by_import[module]

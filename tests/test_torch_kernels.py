@@ -31,6 +31,7 @@ from repro.kernels import score_select as jss
 from repro_torch.core.scoring import HeteRoScoreConfig
 from repro_torch.core.selection import SelectorConfig, dynamic_temperature
 from repro_torch.kernels import score_select as tss
+from test_torch_slice import jax_compile_cache  # noqa: F401  (autouse fixture)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -42,6 +42,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.models import build_model, dense, layers
 
 from test_torch_flash import assert_within_bf16_ulp, bf16_ulp, np32
+from test_torch_slice import jax_compile_cache  # noqa: F401  (autouse fixture)
 
 
 @pytest.fixture(scope="module", autouse=True)

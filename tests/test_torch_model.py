@@ -29,6 +29,7 @@ from repro_torch.convert import params_from_jax, params_to_jax
 from repro_torch.data import make_vision_data
 from repro_torch.fed import FederatedSpec, batched, client, server
 from repro_torch.models import build_model, layers, resnet
+from test_torch_slice import jax_compile_cache  # noqa: F401  (autouse fixture)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -189,19 +190,28 @@ def test_fedavg_fused_matches_reference(weighted):
 
 
 def test_engine_refuses_what_is_not_ported():
-    """The 'filtered' selector and the telemetry hook (slice 10) raise;
-    async rounds and 'fedbuff', refused until slice 8, now build."""
+    """Nothing of the reference's engine options is left unported: the
+    'filtered' selectors and the 'telemetry' hook (slice 10), async rounds
+    and 'fedbuff' (slice 8) build, flat and hierarchical; an unknown
+    selector, filter base or hook still raises."""
     from repro_torch.fed import AsyncFederatedEngine, BufferedAggregator
+    from repro_torch.obs import TelemetryHook
 
     _, tm = models()
     fed = FedConfig(num_clients=4, rounds=1)
     data = make_vision_data(fed, train_per_class=4, test_per_class=2, image_size=8)
     hier = dataclasses.replace(fed, topology="hierarchical", edge_count=2)
     for f in (fed, hier):
-        with pytest.raises(ValueError, match="not yet ported"):
-            FederatedSpec(tm, f, data, device="cpu", selector="filtered").build()
+        FederatedSpec(tm, f, data, device="cpu", selector="filtered").build()
+        with pytest.raises(ValueError, match="cannot wrap"):
+            FederatedSpec(tm, f, data, device="cpu",
+                          selector="filtered:heterosel_pallas").build()
+        with pytest.raises(ValueError, match="unknown selector"):
+            FederatedSpec(tm, f, data, device="cpu", selector="filtered_x").build()
+    eng = FederatedSpec(tm, fed, data, device="cpu", hooks=["telemetry"]).build()
+    assert any(isinstance(h, TelemetryHook) for h in eng.hooks)
     with pytest.raises(ValueError, match="unknown hook"):
-        FederatedSpec(tm, fed, data, device="cpu", hooks=["telemetry"]).build()
+        FederatedSpec(tm, fed, data, device="cpu", hooks=["telemetry_x"]).build()
     assert isinstance(FederatedSpec(tm, fed, data, device="cpu",
                                     round_policy="async").build(), AsyncFederatedEngine)
     eng = FederatedSpec(tm, fed, data, device="cpu", aggregator="fedbuff").build()
@@ -222,6 +232,9 @@ def test_sequential_and_batched_executors_agree(capsys):
     assert runs[0].selected_history.sum(1).tolist() == [3, 3]
     assert set(runs[0].summary()) == {"peak_acc", "final_acc", "stable_acc",
                                       "stability_drop", "selection_std"}
+    # VerboseHook prints the reference's line, from the MetricsRegistry:
+    # "[<selector>] round <t>  accuracy=...  loss=...".
     printed = capsys.readouterr().out.splitlines()
-    assert [line.split()[1] for line in printed] == ["0", "1"]
-    assert all("accuracy=" in line and "heterosel_pallas" in line for line in printed)
+    assert [line.split()[2] for line in printed] == ["0", "1"]
+    assert all(line.startswith("[heterosel_pallas] round") and "accuracy=" in line
+               and "loss=" in line for line in printed)

@@ -13,10 +13,10 @@ snapshot's generator states are what keeps the draws in step.
 The async cells use the reference matrix's hostile profile
 (``tests/test_resume_matrix.py:53-73``: multipliers [1, 3, .5, 2.5, 1, 4],
 deadline 1.5, ε 0.5, jitter 0.1), so the snapshot holds in-flight
-completions. Also here, as parametrized cases of one test each: the
-adaptive selectors' cells (the edge-budget controller and
-``AdaptiveMuHook``'s state ride the snapshot), an availability trace, and
-the loud cases of ``test_resume_matrix.py:167-264`` (engine kind, compact
+completions. The adaptive selectors' cells (the edge-budget controller and
+``AdaptiveMuHook``'s state ride the snapshot) and an availability trace
+are cases of one test in ``test_torch_resume_cells.py``; here, as cases of
+one test, the loud cases of ``test_resume_matrix.py:167-264`` (engine kind, compact
 flip, edge count, ``keep_last``, corrupt latest, all corrupt).
 """
 
@@ -34,10 +34,10 @@ from repro_torch.configs.base import FedConfig
 from repro_torch.configs.registry import get_config, smoke_variant
 from repro_torch.core.state import field_dtypes
 from repro_torch.data import make_vision_data
-from repro_torch.fed import (AdaptiveMuHook, AsyncConfig, AvailabilityTrace,
-                             CheckpointHook, FederatedSpec, HierarchyConfig, KillAtRound,
-                             SimulatedPreemption)
+from repro_torch.fed import (AsyncConfig, CheckpointHook, FederatedSpec, HierarchyConfig,
+                             KillAtRound, SimulatedPreemption)
 from repro_torch.models import build_model
+
 
 ROUNDS = 4
 KILL_AT = 1  # the snapshot covers rounds 0..1: resume from round 2
@@ -132,36 +132,7 @@ def test_kill_at_round_t_resumes_bitwise(setup, tmp_path, policy, topology, comp
             assert any(events), "no snapshot held an in-flight completion"
 
 
-def availability_trace():
-    return AvailabilityTrace(6, p_stay_online=0.7, seed=3).masks(ROUNDS)
-
-
 # (selector, policy, topology, extra spec fields, extra hooks)
-EXTRA_CELLS = {
-    "adaptive async flat": ("adaptive", "async", "flat", {}, lambda: []),
-    "adaptive sync hierarchical": ("adaptive", "sync", "hierarchical", {}, lambda: []),
-    "adaptive async hierarchical": ("adaptive", "async", "hierarchical", {}, lambda: []),
-    "adaptive mu hook": ("heterosel", "sync", "flat", {}, lambda: [AdaptiveMuHook()]),
-    "availability sync flat": ("heterosel", "sync", "flat",
-                               {"availability": availability_trace()}, lambda: []),
-    "availability async hierarchical": ("heterosel_pallas", "async", "hierarchical",
-                                        {"availability": availability_trace()}, lambda: []),
-}
-
-
-@pytest.mark.parametrize("cell", list(EXTRA_CELLS))
-def test_other_cells_resume_bitwise(setup, tmp_path, cell):
-    selector, policy, topology, extra, hooks = EXTRA_CELLS[cell]
-    make_spec = make_spec_factory(setup, policy, topology, False, selector=selector,
-                                  **extra)
-    full = make_spec(hooks()).build().run()
-    resumed, engine = kill_and_resume(make_spec, str(tmp_path / "ck"), "round_end", hooks)
-    assert_bitwise_resume(full, resumed, engine, compact=False)
-    if selector == "adaptive" and topology == "hierarchical":
-        meta = read_federated_meta(str(tmp_path / "ck"))
-        assert "budgets" in meta["schema"]["arrays"]
-    if extra.get("availability") is not None:
-        assert not (full.selected_history & ~extra["availability"]).any()
 
 
 # ---------------------------------------------------------------------------
@@ -260,5 +231,7 @@ def test_hooks_by_registry_name(setup):
     res = FederatedSpec(model, fed, data, selector="heterosel", steps_per_round=1,
                         device="cpu", hooks=["adaptive_mu"]).build().run()
     assert res.mu_history is not None and len(res.mu_history) == 2
+    eng = FederatedSpec(model, fed, data, device="cpu", hooks=["telemetry"]).build()
+    assert type(eng.hooks[1]).__name__ == "TelemetryHook"
     with pytest.raises(ValueError, match="unknown hook"):
-        FederatedSpec(model, fed, data, device="cpu", hooks=["telemetry"]).build()
+        FederatedSpec(model, fed, data, device="cpu", hooks=["nope"]).build()

@@ -172,9 +172,12 @@ def test_selector_masks_match_reference(name, k, m):
 
 
 def test_make_selector_lists_what_is_ported():
+    """Every selector of the reference is ported; an unknown name raises
+    listing them all."""
     with pytest.raises(ValueError, match="heterosel_pallas"):
-        selection.make_selector("filtered", selection.SelectorConfig())
-    assert "adaptive" in selection.SELECTORS
+        selection.make_selector("filtered_x", selection.SelectorConfig())
+    assert selection.SELECTORS == jselection.SELECTORS
+    assert "adaptive" in selection.SELECTORS and "filtered" in selection.SELECTORS
 
 
 def test_gumbel_noise_is_seeded():

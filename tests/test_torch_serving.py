@@ -21,7 +21,8 @@ Tolerances:
     each of the four {sync, async} × {flat, hierarchical} cells (the port
     against itself); ``served_metric`` against the reference's in the sync
     flat cell on the reference's draws (initial params and per-round Gumbel
-    rows), rtol 1e-3 as ``test_torch_lm_slice.py`` holds exp(-loss);
+    rows), rtol 1e-3 as ``test_torch_lm_slice.py`` holds exp(-loss)
+    (``test_torch_serving_fed.py``);
   * ``resolve_params`` on a directory the reference's ``CheckpointHook``
     wrote: the reference's final params bitwise.
 """
@@ -47,7 +48,6 @@ from repro.models import attention as jattn
 from repro.models import build_model as jax_build_model
 from repro.models import dense as jdense
 from repro.serve import ModelServer as JaxModelServer
-from repro.serve import PublishHook as JaxPublishHook
 from repro.serve import TrafficConfig as JaxTrafficConfig
 from repro.serve import TrafficSimulator as JaxTrafficSimulator
 from repro.serve import VersionRegistry as JaxVersionRegistry
@@ -67,7 +67,7 @@ from repro_torch.serve.server import slot_tick
 from repro_torch.serve.traffic import GumbelSource, RowSource, request_seed
 
 from test_torch_slice import jax_compile_cache  # noqa: F401  (autouse fixture)
-from test_torch_slice import reference_draws
+
 
 TINY = dict(d_model=32, d_ff=64, vocab_size=64, num_heads=2, num_kv_heads=2, head_dim=16,
             name="qwen2-serve-tiny")
@@ -485,28 +485,6 @@ def test_training_bitwise_unchanged_with_serving(models, policy, topology):
     # round-t traffic is served by the version published at round t-1
     assert served.served_metric[1, 2] == pytest.approx(float(served.accuracy[0]))
     assert served.served_metric[:, 1].tolist() == list(range(fed.rounds))
-
-
-def test_served_metric_matches_reference(models):
-    """Sync flat, bf16, the reference's initial params and Gumbel rows in
-    both: the accuracy-under-traffic series of the two hooks agree."""
-    jm, tm = models
-    jfed, fed = JaxFedConfig(**FED_KW), lm_fed()
-    jdata = jax_make_lm_data(jfed, vocab=64, seq_len=8)
-    data = make_lm_data(fed, vocab=64, seq_len=8)
-    params, noise = reference_draws(fed.seed, fed.num_clients, fed.rounds, jm)
-    jhook = JaxPublishHook(traffic=JaxTrafficConfig(**SERVE_KW), batch_width=2, max_len=12)
-    ref = JaxFederatedSpec(jm, jfed, jdata, steps_per_round=2, hooks=[jhook]).build().run()
-    hook = PublishHook(traffic=TrafficConfig(**SERVE_KW), batch_width=2, max_len=12)
-    res = FederatedSpec(tm, fed, data, steps_per_round=2, hooks=[hook], device="cpu",
-                        noise=lambda t, k: torch.from_numpy(noise[t]),
-                        init_params=params).build().run()
-    np.testing.assert_array_equal(res.selected_history, np.asarray(ref.selected_history))
-    assert np.array_equal(res.served_metric[:, :2], ref.served_metric[:, :2])
-    np.testing.assert_allclose(res.served_metric[:, 2], ref.served_metric[:, 2], rtol=1e-3)
-    for key in ("requests", "total_tokens", "versions_published", "mean_lag_rounds",
-                "max_lag_rounds", "latest_version", "latest_version_round"):
-        assert res.serving[key] == ref.serving[key], key
 
 
 class _Snapshot(RoundHook):

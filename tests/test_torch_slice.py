@@ -20,6 +20,7 @@ exactly; the train-loss gap is 5e-6, 6e-4 and 1.6e-3 relative in rounds
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -45,18 +46,28 @@ from repro_torch.models import build_model
 
 @pytest.fixture(scope="module", autouse=True)
 def jax_compile_cache(tmp_path_factory):
-    """JAX's persistent compilation cache in a directory of the module's
-    own, while the module runs (the modules that hold several reference runs
-    import it). Each run of the reference builds its own jitted closures, so
-    runs that differ only in selector or executor compile the same programs
-    again; with the cache a repeat loads the executable compiled the first
-    time, and gives the same bits. The worker's settings come back after."""
+    """JAX's persistent compilation cache while the module runs (the port's
+    modules that compile reference code import it), in one directory shared
+    by every module and every xdist worker of the session: the root of the
+    session's temporary directories. Each run of the reference builds its
+    own jitted closures, and modules build the same reference models, so
+    runs and modules that differ only in selector, executor or test compile
+    the same programs again; with the cache a repeat loads the executable
+    compiled the first time, by whichever process, and gives the same bits
+    (an entry read while another process still writes it fails to
+    decompress, and JAX then compiles anew). The worker's settings come back
+    after."""
     from jax.experimental.compilation_cache import compilation_cache
 
-    names = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")
-    saved = {name: getattr(jax.config, name) for name in names}
-    jax.config.update(names[0], str(tmp_path_factory.mktemp("jax_compile_cache")))
-    jax.config.update(names[1], 0.0)
+    base = tmp_path_factory.getbasetemp()
+    root = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+    cache = root / "jax_compile_cache"
+    cache.mkdir(exist_ok=True)
+    settings = {"jax_compilation_cache_dir": str(cache),
+                "jax_persistent_cache_min_compile_time_secs": 0.0}
+    saved = {name: getattr(jax.config, name) for name in settings}
+    for name, value in settings.items():
+        jax.config.update(name, value)
     compilation_cache.reset_cache()
     yield
     for name, value in saved.items():

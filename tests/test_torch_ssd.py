@@ -31,6 +31,7 @@ from repro.kernels import ssd_scan as jssd
 from repro.models import mamba2 as jmamba
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ssd_scan as tssd
+from test_torch_slice import jax_compile_cache  # noqa: F401  (autouse fixture)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -41,6 +41,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.models import build_model, vlm
 
 from test_torch_flash import bf16_ulp, np32
+from test_torch_slice import jax_compile_cache  # noqa: F401  (autouse fixture)
 
 ARCH = "llama-3.2-vision-90b"
 VISION = 37
